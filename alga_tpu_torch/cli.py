@@ -3,16 +3,26 @@ src/Params.cpp:237-506) plus `--device`.
 
 Usage:
     python -m alga_tpu_torch.cli --file1 reads_1.fastq --file2 reads_2.fastq \\
-        --output contigs.fasta [--error-rate 0.02] [--device cuda]
+        --output contigs.fasta [--error-rate 0.02] [--device cuda] \\
+        [--profile_dir DIR]
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import socket
 import sys
 
+import torch
+
+from alga_tpu_torch import device as device_mod
 from alga_tpu_torch.pipeline import (AssemblyConfig, DataQualityError,
                                      assemble_to_file)
+
+# the trace's span around the assembly (a user annotation)
+TRACE_SPAN = "alga_tpu_torch.assemble"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,6 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--redirect_cerr", type=int, default=0,
                    help="redirect stderr logs to <output>.log "
                         "(ref Params.cpp:578-594)")
+    p.add_argument("--profile_dir", default="",
+                   help="write a torch.profiler trace of the assembly to this "
+                        "directory")
     p.add_argument("--device", default=None,
                    help="torch device of the device phases (default: cuda; "
                         "'cpu' runs the plain PyTorch versions)")
@@ -75,12 +88,45 @@ def main(argv=None) -> int:
         deserialize_graph=bool(args.deserialize_graph),
     )
     try:
-        assemble_to_file(cfg, device=args.device)
+        if args.profile_dir:
+            profiled_assembly(cfg, args.device, args.profile_dir)
+        else:
+            assemble_to_file(cfg, device=args.device)
     except DataQualityError as e:
         # ref main.cpp:429-435: stderr message + exit(1)
         print(str(e), file=sys.stderr)
         return 1
     return 0
+
+
+def profiled_assembly(cfg, device, profile_dir: str) -> str:
+    """assemble_to_file under torch.profiler (CPU activity, and CUDA on a
+    CUDA device), inside the span TRACE_SPAN; returns the path of the
+    Chrome trace written into `profile_dir`.  On a CUDA device a trace
+    without kernel events (no CUPTI) raises instead of being written."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    dev = device_mod.resolve(device)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        with record_function(TRACE_SPAN):
+            assemble_to_file(cfg, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"{socket.gethostname()}_"
+                                     f"{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    if dev.type == "cuda":
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        if not any(e.get("cat") == "kernel" for e in events):
+            os.remove(path)
+            raise RuntimeError("torch.profiler recorded no CUDA kernel "
+                               "(is CUPTI available?); no trace written")
+    print(f"profile trace written to {path}", file=sys.stderr)
+    return path
 
 
 if __name__ == "__main__":

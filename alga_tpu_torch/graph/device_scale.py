@@ -25,18 +25,21 @@ edges, and their row order, equal the JAX version's.
 
 from __future__ import annotations
 
+import os
+import sys
+import time
+
 import numpy as np
 import torch
 
 from alga_tpu_torch import _host
 from alga_tpu_torch import device as device_mod
-from alga_tpu_torch.graph.device_join import _substr_eq_rows
+from alga_tpu_torch.graph.device_join import (_as_tensor, _dominated,
+                                              _ragged_arange, _verify)
 from alga_tpu_torch.ops import hashes
 from alga_tpu_torch.ops.bitops import _pad_words
-from alga_tpu_torch.store import words_as_int32
 
 _C3 = 1 << 24          # domination expansion slots per chunk
-_VERIFY_CHUNK = 1 << 22  # candidate compares per row-gather batch
 
 
 def _lexsort(keys) -> torch.Tensor:
@@ -48,23 +51,18 @@ def _lexsort(keys) -> torch.Tensor:
     return perm
 
 
-def _ragged_arange(counts: torch.Tensor, total: int):
-    """(owner, rank): for t < total, the index of the count block holding
-    slot t and t's rank inside that block."""
-    owner = torch.repeat_interleave(counts, output_size=total)
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(total, device=counts.device) - starts[owner]
-    return owner, rank
+def _stage_log():
+    """A function that prints a stage line to stderr with the seconds
+    since this call when ALGA_SCALE_LOG is set, and does nothing
+    otherwise (the JAX version's `_vlog`)."""
+    if not os.environ.get("ALGA_SCALE_LOG"):
+        return lambda msg: None
+    t0 = time.perf_counter()
 
-
-def _verify(packed_pad, a, start, b, length, num_words: int) -> torch.Tensor:
-    """_substr_eq_rows over row gathers, in bounded batches."""
-    out = torch.empty(a.shape[0], dtype=torch.bool, device=a.device)
-    for i in range(0, a.shape[0], _VERIFY_CHUNK):
-        s = slice(i, i + _VERIFY_CHUNK)
-        out[s] = _substr_eq_rows(packed_pad[a[s]], start[s], packed_pad[b[s]],
-                                 length[s], num_words)
-    return out
+    def log(msg: str) -> None:
+        print(f"[device_scale +{time.perf_counter() - t0:7.1f}s] {msg}",
+              file=sys.stderr, flush=True)
+    return log
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +82,8 @@ def _prefix_keys(packed, lengths, at, k: int):
 
 def _block_join(packed, packed_pad, lengths, af, pk_sorted, pk_ids,
                 base: int, BS: int, k: int, nw: int, cap: int, W: int):
-    """Matches (src, dst, ell, off) int64 for source reads [base, base+BS).
+    """Matches (src, dst, ell, off) int64 for source reads [base, base+BS),
+    and the block's candidate count.
 
     A window (B, p) is a live suffix candidate iff p + k <= len_B, af[B]
     and p >= len_B - cap; its candidates are the prefix reads C with the
@@ -103,7 +102,7 @@ def _block_join(packed, packed_pad, lengths, af, pk_sorted, pk_ids,
     total = int(cnt.sum())
     if total == 0:
         z = torch.zeros(0, dtype=torch.int64, device=packed.device)
-        return z, z, z, z
+        return (z, z, z, z), 0
     win, rank = _ragged_arange(cnt, total)
     C = pk_ids[lo[win] + rank]
     src_loc = bloc[win]
@@ -114,7 +113,7 @@ def _block_join(packed, packed_pad, lengths, af, pk_sorted, pk_ids,
     idx = ok.nonzero()[:, 0]
     B, C, ell, off = B[idx], C[idx], ell[idx], off[idx]
     eq = _verify(packed_pad, B, off, C, ell, W)
-    return B[eq], C[eq], ell[eq], off[eq]
+    return (B[eq], C[eq], ell[eq], off[eq]), total
 
 
 # ---------------------------------------------------------------------------
@@ -176,9 +175,7 @@ def _eligible_removers(pairs, removers):
 
 def _dom_chunk(packed_pad, pairs, removers, first, cnt, removed,
                i: int, j: int, W3: int) -> None:
-    """Mark pairs [i, j) that a later eligible remover dominates (ref
-    GCPS.cpp:434-451): offB > 0, offA >= offB, A != B, the remover B ends
-    at or past A's end, and A[offA-offB : offA] == B[0 : offB]."""
+    """Mark pairs [i, j) that an eligible remover dominates."""
     c = cnt[i:j]
     total = int(c.sum())
     if total == 0:
@@ -188,15 +185,9 @@ def _dom_chunk(packed_pad, pairs, removers, first, cnt, removed,
     p_src, _, p_ell, p_off = pairs
     _, rs, re_, ro = removers
     ridx = first[pj] + rank
-    A, ellA, offA = p_src[pj], p_ell[pj], p_off[pj]
-    Br, ellB, offB = rs[ridx], re_[ridx], ro[ridx]
-    later = (ellB > ellA) | ((ellB == ellA) & (Br > A))
-    cond = (later & (Br != A) & (offB > 0) & (offA >= offB)
-            & ((offB + ellB) + (offA - offB) - (offA + ellA) >= 0))
-    sel = cond.nonzero()[:, 0]
-    eq = _verify(packed_pad, A[sel], (offA - offB)[sel], Br[sel], offB[sel],
-                 W3)
-    removed[pj[sel[eq]]] = True
+    dom = _dominated(packed_pad, p_src[pj], p_ell[pj], p_off[pj], rs[ridx],
+                     re_[ridx], ro[ridx], W3)
+    removed[pj[dom]] = True
 
 
 def _final_compact(pairs, removed):
@@ -207,16 +198,6 @@ def _final_compact(pairs, removed):
                  for x in (p_src, p_dst, p_off))
 
 
-def _as_tensor(x, dtype, dev, default_len: int | None = None):
-    if x is None:
-        return torch.ones(default_len, dtype=dtype, device=dev)
-    if isinstance(x, np.ndarray):
-        if dtype == torch.int32 and x.dtype == np.uint32:
-            x = words_as_int32(x)
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device=dev, dtype=dtype)
-
-
 def gcps_graph_device_scale(packed, lengths, n: int, ell_min: int, cap: int,
                             rsoe: int, soes: int, align_from=None,
                             align_to=None, block_elems: int = 1 << 26, *,
@@ -225,7 +206,9 @@ def gcps_graph_device_scale(packed, lengths, n: int, ell_min: int, cap: int,
     row order, as alga_tpu.graph.device_scale.gcps_graph_device_scale.
 
     `packed` is uint32[n, W] numpy or its int32 tensor; `lengths`,
-    `align_from` and `align_to` are numpy arrays or tensors."""
+    `align_from` and `align_to` are numpy arrays or tensors.  With
+    ALGA_SCALE_LOG set it prints its stages to stderr."""
+    vlog = _stage_log()
     dev = device_mod.resolve(device)
     OverlapGraph = _host.OverlapGraph
     packed = _as_tensor(packed, torch.int32, dev)
@@ -245,20 +228,34 @@ def gcps_graph_device_scale(packed, lengths, n: int, ell_min: int, cap: int,
     pk_sorted, order = torch.sort(pk[pref_ids], stable=True)
     pk_ids = pref_ids[order]
     W = _host.packing.words_for(min(max_len, cap))
+    nblocks = -(-n // BS)
+    vlog(f"store on device: n={n} BS={BS} blocks={nblocks} nw={nw}")
 
-    parts = [_block_join(packed, packed_pad, lengths, af, pk_sorted, pk_ids,
-                         base, BS, k, nw, int(cap), W)
-             for base in range(0, n, BS)]
+    parts = []
+    for b, base in enumerate(range(0, n, BS)):
+        found, total = _block_join(packed, packed_pad, lengths, af,
+                                   pk_sorted, pk_ids, base, BS, k, nw,
+                                   int(cap), W)
+        parts.append(found)
+        vlog(f"block {b + 1}/{nblocks}: candidates={total}")
     ms, md, me, mo = (torch.cat(f) for f in zip(*parts))
-    _host.timers.bump("gcps_matches", ms.numel())
+    nmatch = ms.numel()
+    vlog(f"matches={nmatch}")
 
     pairs, removers = _post_wide(ms, md, me, mo, int(rsoe), int(soes))
     del ms, md, me, mo
     first, cnt = _eligible_removers(pairs, removers)
     removed = torch.zeros(pairs[0].numel(), dtype=torch.bool, device=dev)
     csum = torch.cumsum(cnt, 0).cpu().numpy()
-    _host.timers.bump("gcps_domination_checks",
-                      int(csum[-1]) if len(csum) else 0)
+    exp_total = int(csum[-1]) if len(csum) else 0
+    # the JAX version counts its matches as candidates too
+    # (alga_tpu/graph/device_scale.py:542,572)
+    bump = _host.timers.bump
+    bump("gcps_matches", nmatch)
+    bump("gcps_candidates", nmatch)
+    bump("gcps_domination_checks", exp_total)
+    vlog(f"pairs={pairs[0].numel()} removers={removers[0].numel()} "
+         f"exp_total={exp_total} dom_chunks={max(1, -(-exp_total // _C3))}")
     # chunks of whole pairs, each expanding to at most _C3 slots (a pair
     # with more eligible removers than that forms a chunk of its own)
     i = 0
@@ -269,4 +266,6 @@ def gcps_graph_device_scale(packed, lengths, n: int, ell_min: int, cap: int,
         i = j
 
     src, dst, off = _final_compact(pairs, removed)
+    vlog(f"edges={len(src)}")
+    vlog("done")
     return OverlapGraph(n, src, dst, off)

@@ -3,10 +3,10 @@ src/main.cpp:57-779).
 
 Phases: read input → autotune → [correct] → dedup prefix reads → remap →
 overlap graph (GCPS, on the device) → [LI supplement, its ACH on the
-device] → simplify → contract → contigs → consensus → filter → trim →
-write.  Every phase but the two device ones calls the JAX package's host
-layer (the native engine and its numpy twins).  There is no mesh: the
-port runs on one device.
+device] → simplify → contract → contigs → consensus (on the device under
+ALGA_DEVICE_CONSENSUS) → filter → trim → write.  Every phase but the
+device ones calls the JAX package's host layer (the native engine and
+its numpy twins).  There is no mesh: the port runs on one device.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import torch
 
 from alga_tpu_torch import _host, store
 from alga_tpu_torch import device as device_mod
+from alga_tpu_torch.contig import consensus
 from alga_tpu_torch.graph import prefsuf
 from alga_tpu_torch.graph import supplement as supp
 from alga_tpu_torch.io import output
@@ -220,6 +221,9 @@ def assemble(cfg: AssemblyConfig, file1_seqs: list[str] | None = None,
 
     # --- autotune (ref main.cpp:93-115) ------------------------------------
     tcfg = _host.config.autotune(cfg, batch.avg_read_length())
+    _log("config: " + " ".join(
+        f"{k}={v}" for k, v in sorted(vars(tcfg).items())
+        if not k.startswith("_") and k not in ("file1", "file2", "output")))
     _log(f"autotuned: LEN={tcfg.avg_read_length} "
          f"min_overlap={tcfg.min_overlap_pref_suf} rsoe={tcfg.rsoe_min_overlap}")
 
@@ -293,6 +297,7 @@ def assemble(cfg: AssemblyConfig, file1_seqs: list[str] | None = None,
         if tcfg.serialize_graph:
             ser.write_reference_graph(g, ck_after)
     prog.tick("simplify")
+    _log(f"post-simplifier degree stats: {g.degree_stats()}")
     _log(f"There are {batch.count_valid()} reads after graph simplification")
     if batch.count_valid() == 0:
         raise DataQualityError(
@@ -332,7 +337,7 @@ def assemble(cfg: AssemblyConfig, file1_seqs: list[str] | None = None,
     _log(f"{len(contigs)} contigs before filtering")
 
     with timers.phase("consensus"):
-        _host.consensus.correct_all(contigs, batch)
+        consensus.correct_all(contigs, batch, device=dev)
     prog.tick("consensus")
     with timers.phase("filter"):
         contigs = output.filter_contigs(

@@ -13,8 +13,12 @@ Phases; any failure ends the run with a non-zero exit code:
   3 kernels  each CUDA kernel against its plain PyTorch version on the card,
              at the main path's shapes, exact integer equality, and the
              median milliseconds of both.
-  4 graph    configuration A on the bench's 40k-read dataset: the device
-             GCPS edges equal the native host engine's.
+  4 graph    configuration A's graph on the bench's 40k-read dataset by
+             the fused device path (ALGA_GCPS_DEVICE=small, and
+             device_join.gcps_graph_device called directly), the blocked
+             device path (ALGA_GCPS_DEVICE=wide) and the native host
+             engine: the same edges, field for field; first-call and
+             second-call seconds of each.
   5 A        configuration A (the default CLI run, error_rate=0) at E. coli
              scale (4.6 Mb genome, 2x100 bp, 10x: 920k read slots) through
              `python -m alga_tpu_torch.cli`; every contig must be an exact
@@ -24,6 +28,14 @@ Phases; any failure ends the run with a non-zero exit code:
              pipeline.assemble_to_file; both kernels must have launched on
              this main path, and the contigs must share >= 90% of their
              sampled 31-mers with the genome.
+  7 A fused  configuration A through the CLI with ALGA_GCPS_DEVICE=small
+             and ALGA_DEVICE_CONSENSUS=1 (the fused GCPS path at 920k slots
+             and the device consensus): FASTA byte-identical to phase 5's;
+             reads/s, phase seconds and peak device memory.
+  8 trace    configuration A through the CLI with --profile_dir: FASTA
+             byte-identical to phase 5's, a trace with CUDA kernel events,
+             and the device-busy share of the assembly span (the union of
+             kernel intervals over the span's length).
 
 The last three lines of standard output are the card's nvidia-smi line,
 the kernels' JSON record and the result line
@@ -34,6 +46,7 @@ Datasets and logs go to build/chip_smoke/ in the checkout.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -240,6 +253,53 @@ def lcs_pairs(m: int, seed: int, dev):
     return words(c1), words(c2), lens, lens.clone(), off.to(torch.int32)
 
 
+def run_cli(tag: str, paths, n_reads: int, extra_args=(), env=None):
+    """Configuration A through `python -m alga_tpu_torch.cli` in a process
+    of its own; (FASTA bytes, report with the CLI's wall seconds)."""
+    out = WORK / f"{tag}_contigs.fasta"
+    errlog = WORK / f"{tag}_cli.log"
+    t0 = time.perf_counter()
+    with open(errlog, "w") as err:
+        rc = subprocess.run(
+            [sys.executable, "-m", "alga_tpu_torch.cli", "--file1", paths[0],
+             "--file2", paths[1], "--output", str(out), *extra_args],
+            cwd=str(ROOT), stderr=err, timeout=900,
+            env=dict(os.environ, **(env or {}))).returncode
+    wall = time.perf_counter() - t0
+    lines = errlog.read_text().splitlines()
+    if rc != 0:
+        fail(f"{tag} CLI exited {rc}:\n" + "\n".join(lines[-30:]))
+    stats = json.loads(next(ln for ln in reversed(lines)
+                            if ln.startswith('{"count"')))
+    res = report(tag, stats, n_reads)
+    res["cli_wall_s"] = wall
+    return out.read_bytes(), res
+
+
+def busy_share(trace_path: Path, span: str):
+    """(share, span ms, kernel count, top kernels): the union of the CUDA
+    kernel intervals of a torch.profiler Chrome trace inside the
+    annotation `span`, over the span's length."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    win = [e for e in events if e.get("name") == span and "dur" in e
+           and e.get("cat") == "user_annotation"]
+    if len(win) != 1:
+        fail(f"trace: {len(win)} spans named {span}")
+    t0, t1 = float(win[0]["ts"]), float(win[0]["ts"]) + float(win[0]["dur"])
+    kernels = sorted((max(float(e["ts"]), t0),
+                      min(float(e["ts"]) + float(e["dur"]), t1), e["name"])
+                     for e in events if e.get("cat") == "kernel")
+    kernels = [k for k in kernels if k[1] > k[0]]
+    busy, end, by_name = 0.0, t0, {}
+    for a, b, name in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return busy / (t1 - t0), (t1 - t0) / 1e3, len(kernels), top
+
+
 def report(tag: str, stats: dict, n_reads: int) -> dict:
     total = stats["phase_seconds"]["total"]
     out = {"reads": n_reads, "assembly_s": total,
@@ -262,8 +322,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     sys.path.insert(0, str(ROOT))
-    from alga_tpu_torch import _host, pipeline
-    from alga_tpu_torch.graph import prefsuf
+    from alga_tpu_torch import _host, cli, pipeline
+    from alga_tpu_torch.graph import device_join, prefsuf
     from alga_tpu_torch.ops import _cuda, banded_dp
 
     # --- 1 device ---------------------------------------------------------
@@ -341,51 +401,65 @@ def main() -> int:
     gargs = (batch.packed, batch.lengths, len(batch), tcfg.min_overlap_pref_suf,
              tcfg.read_length_cap, tcfg.rsoe_min_overlap, tcfg.soes,
              batch.valid, batch.valid)
-    t0 = time.perf_counter()
-    g_dev = prefsuf.build_gcps_graph(*gargs, device=dev).retain_min_offset()
-    t_dev = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    g_nat = prefsuf.host_gcps_graph(*gargs).retain_min_offset()
-    t_nat = time.perf_counter() - t0
-    if g_dev.num_edges == 0 or not all(
-            np.array_equal(getattr(g_dev, f), getattr(g_nat, f))
-            for f in ("src", "dst", "offset")):
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        g = fn()
+        torch.cuda.synchronize()
+        return g, time.perf_counter() - t0
+
+    def forced(mode):
+        os.environ["ALGA_GCPS_DEVICE"] = mode
+        try:
+            return prefsuf.build_gcps_graph(*gargs, device=dev)
+        finally:
+            del os.environ["ALGA_GCPS_DEVICE"]
+
+    graphs, secs = {}, {}
+    for name, fn in (("small", lambda: forced("small")),
+                     ("wide", lambda: forced("wide")),
+                     ("native", lambda: prefsuf.host_gcps_graph(*gargs)),
+                     ("direct", lambda: device_join.gcps_graph_device(
+                         *gargs, device=dev))):
+        graphs[name], first = timed(fn)
+        second = timed(fn)[1]
+        secs[name] = (first, second)
+
+    def same(g, h):
+        return all(np.array_equal(getattr(g, f), getattr(h, f))
+                   for f in ("src", "dst", "offset"))
+    g_dev = graphs["small"]
+    if g_dev.num_edges == 0:
+        fail("fused GCPS: no edges on the 40k-read dataset")
+    for name in ("wide", "direct"):
+        if not same(g_dev, graphs[name]):
+            fail(f"fused GCPS edges ({g_dev.num_edges}) differ from {name}'s "
+                 f"({graphs[name].num_edges})")
+    if not same(g_dev.retain_min_offset(),
+                graphs["native"].retain_min_offset()):
         fail(f"device GCPS edges ({g_dev.num_edges}) differ from the native "
-             f"engine's ({g_nat.num_edges})")
+             f"engine's ({graphs['native'].num_edges})")
     log(f"graph: 40k-read bench dataset, {len(batch)} reads, "
-        f"{g_dev.num_edges} edges identical; device {t_dev:.3f}s "
-        f"(first call), native {t_nat:.3f}s")
+        f"{g_dev.num_edges} edges identical (small, direct, wide; native "
+        f"after retain_min_offset); seconds first/second call: " + ", ".join(
+            f"{k} {a:.4f}/{b:.4f}" for k, (a, b) in secs.items()))
 
     # --- 5 configuration A through the CLI --------------------------------
     t0 = time.perf_counter()
     genome, a_paths, b_paths, n_file_reads = scale_datasets()
     log(f"datasets: {n_file_reads} file reads per configuration "
         f"({time.perf_counter() - t0:.1f}s)")
-    out_a = WORK / "A_contigs.fasta"
-    t0 = time.perf_counter()
-    with open(WORK / "A_cli.log", "w") as err:
-        rc = subprocess.run(
-            [sys.executable, "-m", "alga_tpu_torch.cli", "--file1",
-             a_paths[0], "--file2", a_paths[1], "--output", str(out_a)],
-            cwd=str(ROOT), stderr=err, timeout=900).returncode
-    wall_a = time.perf_counter() - t0
-    lines = (WORK / "A_cli.log").read_text().splitlines()
-    if rc != 0:
-        fail(f"configuration A CLI exited {rc}:\n" + "\n".join(lines[-30:]))
-    stats_a = json.loads(next(ln for ln in reversed(lines)
-                              if ln.startswith('{"count"')))
-    res_a = report("A", stats_a, n_file_reads)
-    res_a["cli_wall_s"] = wall_a
-    contigs_a = [ln for ln in out_a.read_text().splitlines()
+    fasta_a, res_a = run_cli("A", a_paths, n_file_reads)
+    contigs_a = [ln for ln in fasta_a.decode().splitlines()
                  if not ln.startswith(">") and ln != "CCCC"]
-    if not contigs_a or stats_a["n50"] <= 2 * READ_LEN:
+    if not contigs_a or res_a["n50"] <= 2 * READ_LEN:
         fail(f"configuration A: {len(contigs_a)} contigs, "
-             f"N50 {stats_a['n50']}")
+             f"N50 {res_a['n50']}")
     index = GenomeIndex(genome)
     if not all(index.contains(c) for c in contigs_a):
         fail("configuration A: a contig is not a substring of the genome")
     log(f"A: {len(contigs_a)} contigs, all exact genome substrings; "
-        f"CLI wall {wall_a:.1f}s")
+        f"CLI wall {res_a['cli_wall_s']:.1f}s")
 
     # --- 6 configuration B: the main path through both kernels -----------
     cfg_b = _host.config.AssemblyConfig(
@@ -408,12 +482,45 @@ def main() -> int:
              f"{ident:.3f}")
     log(f"B: {len(contigs_b)} contigs, 31-mer identity {ident:.4f}")
 
+    # --- 7 configuration A on the fused GCPS path and device consensus ---
+    fasta_7, res_7 = run_cli(
+        "A_fused", a_paths, n_file_reads,
+        env={"ALGA_GCPS_DEVICE": "small", "ALGA_DEVICE_CONSENSUS": "1"})
+    if fasta_7 != fasta_a:
+        fail("phase 7: FASTA differs from phase 5's")
+    log(f"A fused: FASTA byte-identical to phase 5's; "
+        f"{res_7['reads_per_s']:.1f} reads/s, peak device memory "
+        f"{res_7['peak_device_mb']} MB (phase 5: {res_a['reads_per_s']:.1f} "
+        f"reads/s, {res_a['peak_device_mb']} MB)")
+
+    # --- 8 configuration A under torch.profiler --------------------------
+    trace_dir = WORK / "trace"
+    if trace_dir.exists():
+        for old in trace_dir.iterdir():
+            old.unlink()
+    fasta_8, res_8 = run_cli("A_trace", a_paths, n_file_reads,
+                                ("--profile_dir", str(trace_dir)))
+    if fasta_8 != fasta_a:
+        fail("phase 8: FASTA differs from phase 5's")
+    traces = sorted(trace_dir.glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        fail(f"phase 8: {len(traces)} trace files in {trace_dir}")
+    share, span_ms, n_kernels, top = busy_share(traces[0], cli.TRACE_SPAN)
+    if n_kernels == 0:
+        fail("phase 8: the trace holds no CUDA kernel events")
+    log(f"A trace: FASTA byte-identical to phase 5's; {n_kernels} kernels; "
+        f"device-busy share of the assembly span {share:.4f} "
+        f"({span_ms:.1f} ms span; {kind}, {smi}); top kernels (ms): "
+        + "; ".join(f"{name[:60]} {us / 1e3:.2f}" for name, us in top))
+
     (WORK / "summary.json").write_text(json.dumps(
-        {"nvidia_smi": smi, "A": res_a, "B": res_b,
+        {"nvidia_smi": smi, "A": res_a, "B": res_b, "A_fused": res_7,
+         "A_trace": res_8, "A_busy_share": share, "A_span_ms": span_ms,
+         "A_trace_kernels": n_kernels,
          "B_lcs_pairs": lcs_pairs_b, "B_launches": launches,
          "B_kmer_identity": ident, "build": _cuda.BUILD_INFO.get("seconds"),
-         "graph_40k": {"edges": g_dev.num_edges, "device_s": t_dev,
-                       "native_s": t_nat}}, indent=1))
+         "graph_40k": {"edges": g_dev.num_edges, "seconds": secs}},
+        indent=1))
 
     kernels = [
         {"name": "gather_planes", "route": "cuda", "source": K1_SOURCE,

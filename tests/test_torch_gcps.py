@@ -112,3 +112,39 @@ def test_build_gcps_graph_routing(rng, long_seqs):
     g_ref = jprefsuf.build_gcps_graph(packed, lengths, n, 25, 500, 25)
     assert g_ref.num_edges > 0
     _assert_same(g_ref.retain_min_offset(), g.retain_min_offset())
+
+
+def _logged(err: str) -> dict:
+    """key=value fields of the [device_scale ...] stage lines."""
+    out = {}
+    for line in err.splitlines():
+        assert line.startswith("[device_scale +"), line
+        for tok in line.split("] ", 1)[1].replace(";", "").split():
+            if "=" in tok:
+                key, val = tok.split("=", 1)
+                out[key] = val
+    return out
+
+
+def test_scale_log(rng, monkeypatch, capsys):
+    """ALGA_SCALE_LOG=1 prints the stages to stderr; the totals it logs
+    are alga_tpu's, and without it nothing is printed."""
+    seqs = simulate_reads(rng, random_genome(rng, 1500), 50, 700)
+    packed, lengths = packing.pack_strings(seqs)
+    args = (packed, lengths, len(seqs), 18, 500, 33, 3)
+    device_scale.gcps_graph_device_scale(*args, block_elems=13 * 33,
+                                         device="cpu")
+    assert capsys.readouterr().err == ""
+    monkeypatch.setenv("ALGA_SCALE_LOG", "1")
+    g = device_scale.gcps_graph_device_scale(*args, block_elems=13 * 33,
+                                             device="cpu")
+    err = capsys.readouterr().err
+    got = _logged(err)
+    assert err.count(": candidates=") == -(-len(seqs) // 13)
+    assert err.rstrip().endswith("] done")
+    assert int(got["edges"]) == g.num_edges
+    jds.gcps_graph_device_scale(*args)
+    want = _logged(capsys.readouterr().err)
+    for key in ("n", "nw", "matches", "pairs", "removers", "exp_total",
+                "edges"):
+        assert got[key] == want[key], key

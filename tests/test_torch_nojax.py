@@ -1,6 +1,8 @@
 """alga_tpu_torch runs without jax: it imports in a process where jax
-cannot be imported and assembles there on the CPU; without CUDA it
-refuses to pick a device on its own; and no file of it imports jax."""
+cannot be imported and assembles there on the CPU, also with the fused
+GCPS path and the device consensus forced (ALGA_GCPS_DEVICE=small,
+ALGA_DEVICE_CONSENSUS=1); without CUDA it refuses to pick a device on its
+own; and no file of it imports jax."""
 
 import os
 import re
@@ -39,8 +41,13 @@ print("NOJAX_OK", len(res.contigs))
 """
 
 
-def test_import_and_assemble_without_jax():
+@pytest.mark.parametrize("forced", [False, True], ids=["default", "forced"])
+def test_import_and_assemble_without_jax(forced):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for k in ("ALGA_GCPS_DEVICE", "ALGA_DEVICE_CONSENSUS"):
+        env.pop(k, None)
+    if forced:
+        env.update(ALGA_GCPS_DEVICE="small", ALGA_DEVICE_CONSENSUS="1")
     out = subprocess.run([sys.executable, "-c", _NOJAX.format(root=str(ROOT))],
                          capture_output=True, text=True, timeout=300, env=env,
                          cwd=str(ROOT))
