@@ -6,18 +6,28 @@ name, and the tests hold each one against it on the CPU.
 
 Layer map (same layers as alga_tpu, see its __init__):
 
+  config.py         — AssemblyConfig and the reference's auto-tuning
   device.py         — device selection (CUDA unless "cpu" is asked for)
-  _host.py          — the JAX package's jax-free host layer (config, native
-                      engine, ingest, simplify, contract, walk, consensus),
-                      reached without running alga_tpu/__init__.py
+  native.py         — ctypes binding of the shared C++ host engine
+                      (native/libalga_host.so at the repository root)
+  core/             — 2-bit packing, SeqBatch
+  io/fastx.py       — read ingest, preprocessing, prefix/duplicate marking
+  corrector.py      — k-mer spectrum read correction
   store.py          — the numpy read store moved onto the device
   ops/              — window hashes, packed compares, ACLER, banded LCS
                       (the two hand-written CUDA kernels live in csrc/)
-  graph/            — device GCPS overlap graph, LI/PKB supplement
+  graph/            — device GCPS overlap graph, LI/PKB supplement, and
+                      the host passes: overlap_graph, simplify, contract
+  contig/           — walk, host consensus, device consensus
   io/output.py      — contig filter, trim and FASTA output
+  utils/            — timers and counters, serialize, libstdc++ sort and
+                      glibc rand replicas
   pipeline.py, cli.py — end-to-end assembly
 
-Nothing here imports jax.
+The host modules (config, native, core, io/fastx, corrector,
+graph/{overlap_graph,simplify,contract}, contig/{walk,consensus}, utils)
+are copies of alga_tpu's, kept in step with them.  Nothing here imports
+jax or alga_tpu.
 """
 
 __version__ = "0.1.0"

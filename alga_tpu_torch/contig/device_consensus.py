@@ -24,11 +24,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from alga_tpu_torch import _host
 from alga_tpu_torch import device as device_mod
 from alga_tpu_torch.store import words_as_int32
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+# ref Contig.cpp:82 (THR); here rather than in contig/consensus.py, which
+# imports this module
+COVERAGE_TRIM_THRESHOLD = 3
 
 
 def _vote_chunk(packed, ids_c, start_c, len_c, counts, G: int) -> None:
@@ -56,7 +59,7 @@ def _decide_trim(counts_flat, ctg_start_marks, NC: int):
     counts = counts_flat.view(G, 4)
     best = counts.argmax(dim=1)                 # the first maximum
     freqs = counts.amax(dim=1)
-    ok = freqs > _host.consensus.COVERAGE_TRIM_THRESHOLD
+    ok = freqs > COVERAGE_TRIM_THRESHOLD
     ctg_of = torch.cumsum(ctg_start_marks, 0) - 1
     col = torch.arange(G, device=counts.device)
     tgt = torch.where(ok, ctg_of, NC)

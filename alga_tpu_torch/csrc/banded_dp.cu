@@ -5,148 +5,75 @@
 //
 // K1 gather_planes
 //   Replaces: _gather_kernel, alga_tpu/ops/pallas/banded_dp.py:69
-//     (launched by mxu_gather_planes, :89).
-//   Computes: out[p, m] = planes[p, idx[m]], 0 for idx[m] outside [0, N).
-//   On the TPU this was a one-hot bf16 matmul, because TPU gathers are
-//   slow; on this card a gather is a load, so the matmul is not carried
-//   over, nor is the 16384-row table cutoff it needed.
-//   Bound: memory.  Each output element costs one 4-byte read from a
-//   data-dependent column and one 4-byte write; there is no arithmetic.
-//   Design: one thread per output element with m fastest, so the idx
-//   reads and the output writes of a warp are 128 contiguous bytes; the
-//   scattered planes reads hit L2, which holds the whole table of the
-//   main path (920k rows x 8 planes x 4 bytes = 29 MB < 50 MB).
+//     (launched by mxu_gather_planes, :89), together with the table
+//     transpose before it (_table_planes, :120) and the unpacking after it
+//     (_rows_from_planes, :139).
+//   Computes: for both sides s of a batch of pairs, out[s, w, m] =
+//   packed[idx[s, m], w] for w < W and out[s, W, m] = lengths[idx[s, m]];
+//   zeros where idx[s, m] is outside [0, N).  On the TPU the gather was a
+//   one-hot bf16 matmul over byte planes, because TPU gathers are slow; on
+//   this card a gather is a load.
+//   Bound: memory.  Per index: the 4-byte index, one (W+1)-word row of the
+//   table, (W+1) output words; no arithmetic.
+//   Design: one thread per (side, index) reads its index once and its row
+//   straight from the row-major table (W consecutive words: one or two
+//   32-byte sectors, the later words from L1), then writes its W+1 output
+//   words, each store coalesced across the warp (neighbouring m).  Both
+//   sides in one launch (gridDim.y = 2); no division, no transposed copy
+//   of the table.
 //
-// K2 banded_lcs
-//   Replaces: _dp_kernel, alga_tpu/ops/pallas/banded_dp.py:152
-//     (launched by _banded_lcs_pallas_x32, :301).
-//   Computes: the ACLCS banded LCS of M read pairs (ref
-//   AlignmentControllerLCS.cpp:61-150): rows p >= max(0, off-E), band of
-//   B = 2E+1 cells at q = p-off-E .. p-off+E clipped to [0, len2), result
-//   at (p*, q*) with p* = min(len1-1, len2-1+off), q* = min(len2-1, p*-off+E).
-//   Bound: integer ALU latency.  A pair needs (rows x B) dependent
-//   compare/max steps and only one new base of each read per row.
-//   Design: one pair per thread.  E is a template parameter, so the band
-//   (B ints) and read 2's window of B bases are unrolled into registers;
-//   each row shifts the window by one base and loads one new base.  Read
-//   1's current word stays in a register and is reloaded every 16 rows.
-//   Words arrive pair-major ([W, M], laid out by K1), so a warp's loads of
-//   one word row are neighbouring addresses.  Reading bases one at a time
-//   removes the Pallas kernel's 32-bit band window limit (2E+1 <= 16);
-//   1 <= E <= 15 is instantiated (E = 0 too).
+// K2 banded_lcs: in banded_lcs.cu, built once per band half-width E; the
+// switch in alga_banded_lcs below picks the instantiation.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void gather_planes_kernel(const int* __restrict__ planes,
-                                     long long n_cols,
-                                     const int* __restrict__ idx,
-                                     long long m, long long total,
-                                     int* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const long long p = t / m;
-    const long long j = t - p * m;
-    const int c = idx[j];
-    out[t] = (c >= 0 && c < n_cols) ? planes[p * n_cols + c] : 0;
-  }
-}
-
-// base q of a read whose words sit at column m of a [W, M] word table;
-// -1 outside [0, len)
-__device__ __forceinline__ int base_at(const int* __restrict__ wT,
-                                       long long M, long long m, int q,
-                                       int len) {
-  if (q < 0 || q >= len) return -1;
-  const unsigned w = (unsigned)wT[(long long)(q >> 4) * M + m];
-  return (int)((w >> (2 * (q & 15))) & 3u);
-}
-
-template <int E>
-__global__ void banded_lcs_kernel(const int* __restrict__ w1T,
-                                  const int* __restrict__ w2T, int W,
-                                  long long M,
-                                  const int* __restrict__ len1,
-                                  const int* __restrict__ len2,
-                                  const int* __restrict__ offsets,
-                                  int* __restrict__ out) {
-  constexpr int B = 2 * E + 1;
+__global__ void gather_rows_kernel(const int* __restrict__ packed,
+                                   const int* __restrict__ lengths,
+                                   long long n_rows, int W,
+                                   const int* __restrict__ idx, long long M,
+                                   int* __restrict__ out) {
   const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= M) return;
-  // lengths never exceed the packed width; the clamp keeps loads in bounds
-  const int l1 = min(len1[m], 16 * W);
-  const int l2 = min(len2[m], 16 * W);
-  const int off = offsets[m];
-  const int p_star = min(l1 - 1, l2 - 1 + off);
-  const int q_star = min(l2 - 1, p_star - off + E);
-  const int d_star = max(0, min(B - 1, q_star - (p_star - off) + E));
-
-  int band[B + 1];  // band[B] stays 0: the `up` value past the band's end
-  int b2[B];  // b2[d] = read 2 base at q = p - off - E + d, -1 outside
-#pragma unroll
-  for (int d = 0; d <= B; ++d) band[d] = 0;
-
-  const int p_beg = max(0, off - E);
-#pragma unroll
-  for (int d = 0; d < B; ++d) b2[d] = base_at(w2T, M, m, p_beg - off - E + d, l2);
-
-  unsigned a_word = 0;
-  int a_wi = -1;
-  for (int p = p_beg; p <= p_star; ++p) {
-    if ((p >> 4) != a_wi) {
-      a_wi = p >> 4;
-      a_word = (unsigned)w1T[(long long)a_wi * M + m];
-    }
-    const int a = (int)((a_word >> (2 * (p & 15))) & 3u);
-    // in place: cell d reads the old band[d] (diag) and band[d+1] (up)
-    int left = 0;
-#pragma unroll
-    for (int d = 0; d < B; ++d) {
-      const int up = band[d + 1];
-      const int val =
-          b2[d] < 0 ? 0 : (a == b2[d] ? band[d] + 1 : max(up, left));
-      band[d] = val;
-      left = val;
-    }
-#pragma unroll
-    for (int d = 0; d + 1 < B; ++d) b2[d] = b2[d + 1];
-    b2[B - 1] = base_at(w2T, M, m, p + 1 - off + E, l2);
-  }
-
-  // d_star lies in [E, 2E].  Indexed directly: an unrolled compare-and-
-  // select over d returned 0 for d_star < 2E when built by CUDA 12.9's
-  // ptxas at -O3 (right at -O0).
-  out[m] = band[d_star];
+  const int s = blockIdx.y;
+  const int c = idx[s * M + m];
+  const bool ok = c >= 0 && c < n_rows;
+  const int* row = packed + (long long)(ok ? c : 0) * W;
+  int* o = out + (long long)s * (W + 1) * M + m;
+  for (int w = 0; w < W; ++w) o[(long long)w * M] = ok ? row[w] : 0;
+  o[(long long)W * M] = ok ? lengths[c] : 0;
 }
 
 }  // namespace
 
+namespace alga_k2 {
+template <int E>
+int launch_lcs(const int* w1T, const int* w2T, int W, long long M,
+               const int* len1, const int* len2, const int* offsets,
+               int* out, cudaStream_t s);
+}  // namespace alga_k2
+
 extern "C" {
 
-int alga_gather_planes(const int* planes, long long P, long long N,
-                       const int* idx, long long M, int* out, void* stream) {
-  const long long total = P * M;
+int alga_gather_planes(const int* packed, const int* lengths, long long N,
+                       int W, const int* idx, long long M, int* out,
+                       void* stream) {
   const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride covers the rest
-  gather_planes_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      planes, N, idx, M, total, out);
+  const dim3 grid((unsigned)((M + threads - 1) / threads), 2);
+  gather_rows_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      packed, lengths, N, W, idx, M, out);
   return (int)cudaGetLastError();
 }
 
-#define ALGA_LCS_CASE(e)                                                    \
-  case e:                                                                   \
-    banded_lcs_kernel<e><<<blocks, threads, 0, s>>>(w1T, w2T, W, M, len1,   \
-                                                    len2, offsets, out);    \
-    break;
+#define ALGA_LCS_CASE(e)                                                  \
+  case e:                                                                 \
+    return alga_k2::launch_lcs<e>(w1T, w2T, W, M, len1, len2, offsets,    \
+                                  out, s);
 
 int alga_banded_lcs(const int* w1T, const int* w2T, int W, long long M,
                     const int* len1, const int* len2, const int* offsets,
                     int E, int* out, void* stream) {
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((M + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
   switch (E) {
     ALGA_LCS_CASE(0) ALGA_LCS_CASE(1) ALGA_LCS_CASE(2) ALGA_LCS_CASE(3)
@@ -156,7 +83,6 @@ int alga_banded_lcs(const int* w1T, const int* w2T, int W, long long M,
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 const char* alga_cuda_error_string(int code) {

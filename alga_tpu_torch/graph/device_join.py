@@ -36,11 +36,13 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from alga_tpu_torch import _host
 from alga_tpu_torch import device as device_mod
+from alga_tpu_torch.core import packing
+from alga_tpu_torch.graph.overlap_graph import OverlapGraph
 from alga_tpu_torch.ops import hashes
 from alga_tpu_torch.ops.bitops import M32, _low_mask, _pad_words
 from alga_tpu_torch.store import words_as_int32
+from alga_tpu_torch.utils import timers
 
 # the exact overlaps, as native.gcps_from_matches reads them
 Matches = namedtuple("Matches", "src dst ell")
@@ -280,21 +282,21 @@ def gcps_graph_device(packed, lengths, n: int, ell_min: int, cap: int,
     max_len = int(lengths.max()) if n else 0
     k = int(ell_min)
     if n == 0 or max_len < k:
-        return _host.OverlapGraph.empty(n)
+        return OverlapGraph.empty(n)
     if n >= (1 << 22) or max_len >= 1024:
         raise ValueError(
             "gcps_graph_device requires n < 2^22 and read length < 1024 "
             "(packed sort keys); route larger inputs through the host or "
             "sharded paths")
-    W = _host.packing.words_for(min(max_len, cap))
+    W = packing.words_for(min(max_len, cap))
     (src, dst, off), (total, nmatch, exp_total) = _gcps_fused(
         packed, lengths, af, at, k, max_len - k + 1, int(cap), int(rsoe),
         int(soes), W)
-    bump = _host.timers.bump
+    bump = timers.bump
     bump("gcps_candidates", total)
     bump("gcps_matches", nmatch)
     bump("gcps_domination_checks", exp_total)
-    return _host.OverlapGraph(n, *(x.to(torch.int32).cpu().numpy()
+    return OverlapGraph(n, *(x.to(torch.int32).cpu().numpy()
                                    for x in (src, dst, off)))
 
 
@@ -315,6 +317,6 @@ def find_exact_overlaps_device(packed, lengths, ell_min: int, cap: int,
     wB, wp, lo, counts = _keys_and_counts(packed, lengths, af, at, k,
                                           max_len - k + 1, int(cap))
     B, C, E, _ = _expand_verify(_pad_words(packed), lengths, wB, wp, lo,
-                                counts, _host.packing.words_for(
+                                counts, packing.words_for(
                                     min(max_len, cap)))
     return Matches(*(x.cpu().numpy() for x in (B, C, E)))

@@ -32,12 +32,14 @@ import time
 import numpy as np
 import torch
 
-from alga_tpu_torch import _host
 from alga_tpu_torch import device as device_mod
+from alga_tpu_torch.core import packing
 from alga_tpu_torch.graph.device_join import (_as_tensor, _dominated,
                                               _ragged_arange, _verify)
+from alga_tpu_torch.graph.overlap_graph import OverlapGraph
 from alga_tpu_torch.ops import hashes
 from alga_tpu_torch.ops.bitops import _pad_words
+from alga_tpu_torch.utils import timers
 
 _C3 = 1 << 24          # domination expansion slots per chunk
 
@@ -210,7 +212,6 @@ def gcps_graph_device_scale(packed, lengths, n: int, ell_min: int, cap: int,
     ALGA_SCALE_LOG set it prints its stages to stderr."""
     vlog = _stage_log()
     dev = device_mod.resolve(device)
-    OverlapGraph = _host.OverlapGraph
     packed = _as_tensor(packed, torch.int32, dev)
     lengths = _as_tensor(lengths, torch.int32, dev)
     max_len = int(lengths.max()) if n else 0
@@ -227,7 +228,7 @@ def gcps_graph_device_scale(packed, lengths, n: int, ell_min: int, cap: int,
     pref_ids = pvalid.nonzero()[:, 0]
     pk_sorted, order = torch.sort(pk[pref_ids], stable=True)
     pk_ids = pref_ids[order]
-    W = _host.packing.words_for(min(max_len, cap))
+    W = packing.words_for(min(max_len, cap))
     nblocks = -(-n // BS)
     vlog(f"store on device: n={n} BS={BS} blocks={nblocks} nw={nw}")
 
@@ -250,7 +251,7 @@ def gcps_graph_device_scale(packed, lengths, n: int, ell_min: int, cap: int,
     exp_total = int(csum[-1]) if len(csum) else 0
     # the JAX version counts its matches as candidates too
     # (alga_tpu/graph/device_scale.py:542,572)
-    bump = _host.timers.bump
+    bump = timers.bump
     bump("gcps_matches", nmatch)
     bump("gcps_candidates", nmatch)
     bump("gcps_domination_checks", exp_total)

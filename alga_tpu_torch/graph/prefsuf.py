@@ -23,11 +23,13 @@ import sys
 
 import numpy as np
 
-from alga_tpu_torch import _host
 from alga_tpu_torch import device as device_mod
+from alga_tpu_torch import native
 from alga_tpu_torch.graph.device_join import Matches, gcps_graph_device
 from alga_tpu_torch.graph.device_scale import gcps_graph_device_scale
+from alga_tpu_torch.graph.overlap_graph import OverlapGraph
 from alga_tpu_torch.ops import hashes
+from alga_tpu_torch.utils import timers
 
 
 def host_gcps_graph(packed, lengths, n: int, ell_min: int, cap: int,
@@ -35,7 +37,6 @@ def host_gcps_graph(packed, lengths, n: int, ell_min: int, cap: int,
                     align_to=None):
     """GCPS graph by the native engine: prefix keys, fused join + verify
     straight from the packed store, then the post-match stages."""
-    native = _host.native
     if not native.available():
         raise RuntimeError("alga_tpu_torch: the native host engine "
                            "(native/libalga_host.so) is required for the "
@@ -44,7 +45,7 @@ def host_gcps_graph(packed, lengths, n: int, ell_min: int, cap: int,
     k = int(ell_min)
     max_len = int(lengths.max(initial=0))
     if n == 0 or k <= 0 or max_len < k:
-        return _host.OverlapGraph.empty(n)
+        return OverlapGraph.empty(n)
     af = (np.ones(n, dtype=bool) if align_from is None
           else np.asarray(align_from, dtype=bool))
     at = (np.ones(n, dtype=bool) if align_to is None
@@ -57,7 +58,7 @@ def host_gcps_graph(packed, lengths, n: int, ell_min: int, cap: int,
         n, max_len - k + 1, lengths, af & (lengths >= k), k, cap,
         hashes.A1, hashes.A2, pk[order], pref_ids[order].astype(np.int32),
         packed)
-    _host.timers.bump("gcps_matches", len(src))
+    timers.bump("gcps_matches", len(src))
     return native.gcps_from_matches(n, Matches(src, dst, ell), packed,
                                     lengths, rsoe, soes)
 

@@ -15,12 +15,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from alga_tpu_torch import _host
+from alga_tpu_torch import native
 from alga_tpu_torch.ops.align import ach_batch_auto
 
 
 def _native():
-    native = _host.native
     if not native.available():
         raise RuntimeError("alga_tpu_torch: the error-tolerant supplement "
                            "needs the native host engine "

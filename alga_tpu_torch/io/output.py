@@ -7,8 +7,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from alga_tpu_torch import _host
+from alga_tpu_torch import native
+from alga_tpu_torch.core import packing
+from alga_tpu_torch.core.seqbatch import SeqBatch
 from alga_tpu_torch.graph import prefsuf
+from alga_tpu_torch.utils.libstdcxx_sort import libstdcxx_sort
 
 
 def filter_contigs(contigs, n_reads: int, min_output_length: int,
@@ -20,12 +23,12 @@ def filter_contigs(contigs, n_reads: int, min_output_length: int,
     (longer) contig; passing contigs claim their reads and revcomps.  The
     order is libstdc++'s unstable std::sort, as the reference's."""
     was_in_contig = np.zeros(n_reads, dtype=bool)
-    if _host.native.available():
+    if native.available():
         lens = np.fromiter((len(c) for c in contigs), dtype=np.int64,
                            count=len(contigs))
-        order = _host.native.sort_len_desc(lens).tolist()
+        order = native.sort_len_desc(lens).tolist()
     else:
-        order = _host.libstdcxx_sort(
+        order = libstdcxx_sort(
             list(range(len(contigs))),
             lambda i, j: len(contigs[i]) > len(contigs[j]))
     out = []
@@ -41,7 +44,7 @@ def filter_contigs(contigs, n_reads: int, min_output_length: int,
             continue
         was_in_contig[rids] = True
         if mark_revcomp:
-            was_in_contig[_host.SeqBatch.revcomp_id(rids)] = True
+            was_in_contig[SeqBatch.revcomp_id(rids)] = True
         ctg.cid = new_id
         new_id += 1
         out.append(ctg)
@@ -58,10 +61,10 @@ def trim_contigs(contigs, threshold: int = 25, read_cap: int = 500, *,
         return
     m = len(contigs)
     seqs = [c.seq for c in contigs] + [_revcomp(c.seq) for c in contigs]
-    if _host.native.available():
-        packed, lengths = _host.native.pack_ragged(seqs)
+    if native.available():
+        packed, lengths = native.pack_ragged(seqs)
     else:
-        packed, lengths = _host.packing.pack_strings(seqs)
+        packed, lengths = packing.pack_strings(seqs)
     g = prefsuf.build_gcps_graph(
         packed, lengths, len(seqs), ell_min=threshold, cap=read_cap,
         rsoe=threshold, device=device)

@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels (alga_tpu_torch/csrc/*.cu).
 
 On first use nvcc compiles the sources for sm_90a into a shared library
-with a plain C interface, which ctypes loads.  The library goes into
-alga_tpu_torch/_build/ (listed in .gitignore) under a name that carries a
-hash of the sources, so an edited source is rebuilt.  Nothing is built
-when the module is imported: the CPU tests import it without nvcc.
+with a plain C interface, which ctypes loads: banded_dp.cu once and
+banded_lcs.cu once per band half-width, all at once, one nvcc process
+each, then one link.  The library goes into alga_tpu_torch/_build/
+(listed in .gitignore) under a name that carries a hash of the sources,
+so an edited source is rebuilt.  Nothing is built when the module is
+imported: the CPU tests import it without nvcc.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -37,26 +40,42 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def _run(cmd: list) -> str:
+    """stderr of a successful nvcc run; raises with its output otherwise."""
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"alga_tpu_torch: nvcc failed ({' '.join(cmd)}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    return res.stderr
+
+
 def build() -> Path:
     """Path of the kernel library, compiling it first when missing."""
+    from alga_tpu_torch.ops.banded_dp import MAX_E
     srcs = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256(
         b"".join(p.name.encode() + p.read_bytes() for p in srcs)).hexdigest()
     so = _BUILD / f"libalga_kernels_{digest[:16]}.so"
     if so.exists():
         return so
-    _BUILD.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *map(str, srcs)]
+    objdir = _BUILD / f"obj_{digest[:16]}_{os.getpid()}"
+    objdir.mkdir(parents=True, exist_ok=True)
+    units = [(_CSRC / "banded_dp.cu", [], objdir / "banded_dp.o")]
+    units += [(_CSRC / "banded_lcs.cu", [f"-DALGA_LCS_E={e}"],
+               objdir / f"banded_lcs_{e}.o") for e in range(MAX_E + 1)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"alga_tpu_torch: nvcc failed ({' '.join(cmd)}):\n"
-                           f"{res.stdout}\n{res.stderr}")
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        ptxas = list(pool.map(lambda u: _run(
+            [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-c",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", *u[1], "-o", str(u[2]),
+             str(u[0])]), units))
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    _run([nvcc, "-shared", "-o", str(tmp), *(str(u[2]) for u in units)])
     os.replace(tmp, so)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, ptxas=res.stderr)
+    shutil.rmtree(objdir, ignore_errors=True)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0,
+                      ptxas="\n".join(ptxas))
     return so
 
 
@@ -68,7 +87,7 @@ def lib():
     L = ctypes.CDLL(str(build()))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     L.alga_gather_planes.restype = i32
-    L.alga_gather_planes.argtypes = [p, i64, i64, p, i64, p, p]
+    L.alga_gather_planes.argtypes = [p, p, i64, i32, p, i64, p, p]
     L.alga_banded_lcs.restype = i32
     L.alga_banded_lcs.argtypes = [p, p, i32, i64, p, p, p, i32, p, p]
     L.alga_cuda_error_string.restype = ctypes.c_char_p

@@ -15,12 +15,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from alga_tpu_torch import _host
 from alga_tpu_torch import device as device_mod
+from alga_tpu_torch import native
+from alga_tpu_torch.core import packing
 from alga_tpu_torch.ops import banded_dp
 from alga_tpu_torch.ops.bitops import (M32, _low_mask, _pad_words,
                                        _shifted_words, popcount32)
 from alga_tpu_torch.store import words_as_int32
+from alga_tpu_torch.utils import timers
 
 
 # ---------------------------------------------------------------------------
@@ -79,16 +81,15 @@ def banded_lcs(packed, lengths, r1, r2, offsets, E: int = 2) -> torch.Tensor:
     """int32[M]: the banded LCS of pairs (r1[i], r2[i], offsets[i]) of the
     packed read table (int32[N, W] words, int32[N] lengths).
 
-    Dispatches on the tensors' device: K1 (gather_planes) fetches each
-    pair's words pair-major and K2 (banded_dp.banded_lcs) runs the DP —
-    CUDA kernels for GPU tensors, their plain versions for CPU tensors."""
-    _host.timers.bump("ach_lcs_pairs", r1.shape[0])
-    planes = banded_dp._table_planes(packed, lengths)
-    w1T, len1 = banded_dp._rows_from_planes(
-        banded_dp.gather_planes(planes, r1.to(torch.int32)))
-    w2T, len2 = banded_dp._rows_from_planes(
-        banded_dp.gather_planes(planes, r2.to(torch.int32)))
-    return banded_dp.banded_lcs(w1T, w2T, len1, len2,
+    Dispatches on the tensors' device: K1 (gather_planes) fetches both
+    reads' words and lengths pair-major in one launch and K2
+    (banded_dp.banded_lcs) runs the DP — CUDA kernels for GPU tensors,
+    their plain versions for CPU tensors."""
+    timers.bump("ach_lcs_pairs", r1.shape[0])
+    rows = banded_dp.gather_planes(packed, lengths,
+                                   torch.stack([r1, r2]).to(torch.int32))
+    return banded_dp.banded_lcs(rows[0, :-1], rows[1, :-1], rows[0, -1],
+                                rows[1, -1],
                                 offsets.to(torch.int32).contiguous(), E)
 
 
@@ -170,7 +171,7 @@ def _np_ach_chunk(codes, lengths, r1, r2, offsets, cfg, packed, device):
     if need.any():
         idx = np.flatnonzero(need)
         if packed is None:
-            packed = _host.packing.codes_to_packed(codes, lengths)
+            packed = packing.codes_to_packed(codes, lengths)
         acler[idx] = _lcs_accept(_table(packed, lengths, device), r1[idx],
                                  r2[idx], offsets[idx], overlap[idx], cfg)
     return acler
@@ -182,13 +183,12 @@ def ach_batch_auto(packed, codes, lengths, r1, r2, offsets, cfg,
     """bool[M]: ACH over pairs — the numpy twin (or the native ACLER) for
     small batches, `acler_batch` and `banded_lcs` on `device` for large
     ones.  `packed` is the uint32[N, W] numpy read store."""
-    bump = _host.timers.bump
+    bump = timers.bump
     m = len(r1)
     bump("ach_total_alignments", m)     # ref ACHybrid.h:31-36 counters
     if m == 0:
         return np.zeros(0, dtype=bool)
     if m < min_device_batch or packed is None:
-        native = _host.native
         if (packed is not None and cfg.use_acler_instead_of_aclcs
                 and native.available()):
             return native.acler_batch_native(
@@ -199,7 +199,7 @@ def ach_batch_auto(packed, codes, lengths, r1, r2, offsets, cfg,
             uniq, inv = np.unique(np.concatenate([r1, r2]),
                                   return_inverse=True)
             sub = np.asarray(packed)[uniq]
-            return np_ach_batch(_host.packing.packed_to_codes(sub),
+            return np_ach_batch(packing.packed_to_codes(sub),
                                 np.asarray(lengths)[uniq], inv[:m], inv[m:],
                                 offsets, cfg, packed=sub, device=device)
         return np_ach_batch(codes, lengths, r1, r2, offsets, cfg,

@@ -1,20 +1,19 @@
 """Banded LCS of read pairs: two CUDA kernels and their plain versions
 (port of alga_tpu/ops/pallas/banded_dp.py).
 
-  gather_planes  K1, replaces _gather_kernel / mxu_gather_planes: the
-                 columns `idx` of a [P, N] table of int32 planes.
+  gather_planes  K1, replaces _gather_kernel / mxu_gather_planes with
+                 _table_planes and _rows_from_planes around it: the words
+                 and length of each pair's reads, pair-major, straight
+                 from the row-major read table.
   banded_lcs     K2, replaces _dp_kernel / _banded_lcs_pallas_x32: the
                  ACLCS banded LCS of pairs whose words are laid out
                  pair-major ([W, M]).
 
-The kernels are in csrc/banded_dp.cu.  Each wrapper runs its plain
+The kernels are in csrc/banded_dp.cu (K1, and the C interface of both)
+and csrc/banded_lcs.cu (K2).  Each wrapper runs its plain
 PyTorch version (`gather_planes_plain`, `banded_lcs_batch`) for a tensor
 on the CPU, launches its kernel for a tensor on a GPU, and raises for
 anything else.  `LAUNCHES` counts kernel launches per wrapper.
-
-The plane table is the packed words viewed as int32 plus one lengths row
-(`_table_planes`): the TPU's byte split existed only to make values exact
-in bf16 for its matmul gather.
 """
 
 from __future__ import annotations
@@ -56,50 +55,53 @@ def _stream(dev: torch.device) -> int:
 
 
 # ---------------------------------------------------------------------------
-# K1: column gather
+# K1: pair rows of the read table
 
-def gather_planes_plain(planes: torch.Tensor, idx: torch.Tensor):
-    """int32[P, M]: planes[:, idx], 0 where idx is outside [0, N)."""
-    n = planes.shape[1]
-    ok = (idx >= 0) & (idx < n)
+def gather_planes_plain(packed: torch.Tensor, lengths: torch.Tensor,
+                        idx: torch.Tensor) -> torch.Tensor:
+    """int32[S, W+1, M]: for each side s, the words packed[idx[s, m]] and
+    then lengths[idx[s, m]], pair-major; zeros where idx is outside
+    [0, N)."""
+    n, W = packed.shape
+    S, M = idx.shape
     if n == 0:
-        return torch.zeros((planes.shape[0], idx.shape[0]),
-                           dtype=planes.dtype, device=planes.device)
-    got = planes[:, idx.clamp(0, n - 1).to(torch.int64)]
-    return torch.where(ok[None, :], got, 0)
+        return torch.zeros((S, W + 1, M), dtype=torch.int32,
+                           device=packed.device)
+    table = torch.cat([packed.to(torch.int32),
+                       lengths.to(torch.int32)[:, None]], 1)    # [N, W+1]
+    ok = (idx >= 0) & (idx < n)
+    got = table[idx.clamp(0, n - 1).to(torch.int64)]            # [S, M, W+1]
+    return torch.where(ok[..., None], got, 0).transpose(1, 2).contiguous()
 
 
-def gather_planes(planes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """int32[P, M]: planes[:, idx], 0 where idx is outside [0, N)."""
-    if not _on_gpu("gather_planes", planes, idx):
-        return gather_planes_plain(planes, idx)
-    _check_int32("gather_planes", "planes", planes, 2)
-    _check_int32("gather_planes", "idx", idx, 1)
-    P, N = planes.shape
-    M = idx.shape[0]
-    out = torch.empty((P, M), dtype=torch.int32, device=planes.device)
-    if P * M == 0:
+def gather_planes(packed: torch.Tensor, lengths: torch.Tensor,
+                  idx: torch.Tensor) -> torch.Tensor:
+    """int32[2, W+1, M]: the words and length of rows idx[s, m] of a read
+    table (int32 packed [N, W], int32 lengths [N]) for both sides s of M
+    pairs, pair-major; zeros where idx is outside [0, N).  out[s, :W] and
+    out[s, W] are the contiguous [W, M] words and [M] lengths that K2
+    takes."""
+    if not _on_gpu("gather_planes", packed, lengths, idx):
+        return gather_planes_plain(packed, lengths, idx)
+    _check_int32("gather_planes", "packed", packed, 2)
+    _check_int32("gather_planes", "lengths", lengths, 1)
+    _check_int32("gather_planes", "idx", idx, 2)
+    N, W = packed.shape
+    if lengths.shape[0] != N or idx.shape[0] != 2:
+        raise ValueError("gather_planes: lengths must be [N] beside packed "
+                         "[N, W], and idx [2, M]")
+    M = idx.shape[1]
+    out = torch.empty((2, W + 1, M), dtype=torch.int32, device=packed.device)
+    if M == 0:
         return out
     from alga_tpu_torch.ops import _cuda
-    with torch.cuda.device(planes.device):
+    with torch.cuda.device(packed.device):
         rc = _cuda.lib().alga_gather_planes(
-            planes.data_ptr(), P, N, idx.data_ptr(), M, out.data_ptr(),
-            _stream(planes.device))
+            packed.data_ptr(), lengths.data_ptr(), N, W, idx.data_ptr(), M,
+            out.data_ptr(), _stream(packed.device))
     _cuda.check(rc, "gather_planes")
     LAUNCHES["gather_planes"] += 1
     return out
-
-
-def _table_planes(packed: torch.Tensor, lengths: torch.Tensor):
-    """int32[W+1, N]: the packed words of every read, then its length."""
-    return torch.cat([packed.to(torch.int32).T,
-                      lengths.to(torch.int32)[None, :]]).contiguous()
-
-
-def _rows_from_planes(planes: torch.Tensor):
-    """(words int32[W, M], lengths int32[M]) of gathered planes; both are
-    contiguous views of a contiguous [W+1, M] gather."""
-    return planes[:-1], planes[-1]
 
 
 # ---------------------------------------------------------------------------

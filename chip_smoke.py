@@ -9,10 +9,19 @@ Run from the repository root, with no arguments:
 Phases; any failure ends the run with a non-zero exit code:
 
   1 device   CUDA is present; the card's name and power limit.
-  2 build    nvcc builds alga_tpu_torch/csrc for sm_90a (seconds, ptxas).
+  2 build    nvcc builds alga_tpu_torch/csrc for sm_90a, one process per
+             object (seconds, ptxas).
   3 kernels  each CUDA kernel against its plain PyTorch version on the card,
-             at the main path's shapes, exact integer equality, and the
-             median milliseconds of both.
+             exact integer equality (K2 at E = 1, 2, 3, 7, and on pairs
+             of unequal lengths at E = 0, 1, 2, 3, 7, 15), at two shapes:
+             the large one (K1: a 920k-row table, 2^20 indices; K2: 2^18
+             pairs) here, and configuration B's own (the median table rows
+             and pairs per launch that phase 6 logs) after phase 6.  Device
+             milliseconds of each kernel (a CUDA graph of 20 launches), of
+             its plain version and of the one library call that computes
+             the same gather (K1: index_select), the bound (the least time
+             for the bytes or the integer operations the inputs need, from
+             H100 SXM peaks) and the kernel's share of it.
   4 graph    configuration A's graph on the bench's 40k-read dataset by
              the fused device path (ALGA_GCPS_DEVICE=small, and
              device_join.gcps_graph_device called directly), the blocked
@@ -26,8 +35,10 @@ Phases; any failure ends the run with a non-zero exit code:
   6 B        configuration B (2% substitutions, error_rate=0.02, ACLCS
              fallback on) at the same scale through
              pipeline.assemble_to_file; both kernels must have launched on
-             this main path, and the contigs must share >= 90% of their
-             sampled 31-mers with the genome.
+             this main path, K1 once per LCS batch; the output of every
+             launch on the path must equal the plain version's on the
+             same inputs; the contigs must share >= 90% of their sampled
+             31-mers with the genome.
   7 A fused  configuration A through the CLI with ALGA_GCPS_DEVICE=small
              and ALGA_DEVICE_CONSENSUS=1 (the fused GCPS path at 920k slots
              and the device consensus): FASTA byte-identical to phase 5's;
@@ -45,6 +56,7 @@ Datasets and logs go to build/chip_smoke/ in the checkout.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -64,7 +76,8 @@ SEED = 42                       # bench.py _ensure_scale_dataset
 ERR_SEED = 11
 ERR_RATE = 0.02
 
-K1_SOURCE = "alga_tpu_torch/csrc/banded_dp.cu"
+KERNEL_SOURCES = {"gather_planes": "alga_tpu_torch/csrc/banded_dp.cu",
+                  "banded_lcs": "alga_tpu_torch/csrc/banded_lcs.cu"}
 
 
 def fail(msg: str) -> None:
@@ -85,7 +98,9 @@ def nvidia_smi_line() -> str:
 
 
 def median_ms(fn, reps: int) -> float:
-    """Median milliseconds of fn() on the current stream (CUDA events)."""
+    """Median milliseconds of fn() on the current stream (CUDA events
+    around each call: host work inside fn counts, so this times the plain
+    versions, whose host syncs rule out a CUDA graph)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -99,6 +114,179 @@ def median_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds per call of fn(), which must launch work only:
+    `reps` calls captured in one CUDA graph, replayed warm, the median of
+    five replays over `reps`.  Host overhead is left out, so small
+    launches are timed as the card runs them back to back."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+# H100 SXM, NVIDIA's data sheet: HBM3 at 3.35 TB/s; 64 INT32 lanes per SM
+# at the 1.98 GHz boost clock (the SM count is read from the card)
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES_PER_SM = 64
+SM_CLOCK_HZ = 1.98e9
+# the least integer instructions one band cell of v = max(up, diag + match,
+# left) needs on sm_90: its match bit out of the row's XOR (the XOR, one
+# per row, is shared by the band's cells and not counted), max(diag +
+# match, up) as one DPX add-max (VIADDMNMX, which ptxas emits for K2), and
+# the max with left
+LCS_OPS_PER_CELL = 3
+
+
+def k1_bound(packed, idx):
+    """(ms, "bytes"): the index words, each table row (W words and the
+    length) an index of the run touches, and the output, moved once."""
+    import torch
+    n, W = packed.shape
+    ok = idx[(idx >= 0) & (idx < n)]
+    rows = int(torch.unique(ok).numel())
+    nbytes = 4 * (idx.numel() + rows * (W + 1) + idx.numel() * (W + 1))
+    return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes"
+
+
+def k2_bound(w1T, len1, len2, off, E, n_sm):
+    """(ms, kind): the larger of LCS_OPS_PER_CELL integer operations per
+    band cell these pairs need (rows p_beg..p* times 2E+1) at the card's
+    INT32 rate, and their words, lengths, offsets and result moved once."""
+    import torch
+    W, M = w1T.shape
+    l1 = len1.long().clamp(max=16 * W)
+    l2 = len2.long().clamp(max=16 * W)
+    o = off.long()
+    rows = (torch.minimum(l1 - 1, l2 - 1 + o) - (o - E).clamp(min=0) + 1)
+    cells = int(rows.clamp(min=0).sum()) * (2 * E + 1)
+    ops_ms = 1e3 * LCS_OPS_PER_CELL * cells / (
+        n_sm * INT32_LANES_PER_SM * SM_CLOCK_HZ)
+    bytes_ms = 1e3 * 4 * (2 * W + 4) * M / HBM_BYTES_PER_S
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+def kernel_phase(dev, banded_dp, tag, n_rows, m_k1, m_k2):
+    """Both kernels against their plain versions at one shape, exact
+    (K2 at E = 1, 2, 3, 7, and at E = 0, 1, 2, 3, 7, 15 on pairs of
+    unequal lengths), with their device times, plain and library times
+    and bounds.  K1: a table of n_rows reads of 100 bp and m_k1 pairs; K2:
+    m_k2 pairs of 100 bp reads."""
+    import torch
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(0)
+    W = 7                                 # words of a 100 bp read
+    packed = torch.randint(-2**31, 2**31 - 1, (n_rows, W), generator=gen,
+                           device=dev, dtype=torch.int32)
+    lengths = torch.randint(60, 113, (n_rows,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    idx = torch.randint(0, n_rows, (2, m_k1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx[:, ::97] = -1                     # a few indices out of range
+    idx[:, 1::89] = n_rows
+    out = {}
+
+    k1 = banded_dp.gather_planes(packed, lengths, idx)
+    k1_err = int((k1.long() - banded_dp.gather_planes_plain(
+        packed, lengths, idx).long()).abs().max())
+    if k1_err != 0:
+        fail(f"{tag}: gather_planes differs from its plain version "
+             f"({k1_err})")
+    # the one library call that gathers the same words pair-major (from a
+    # plane table [W+1, N], in-range indices)
+    planes = torch.cat([packed.T, lengths[None, :]]).contiguous()
+    idx_in = idx.clamp(0, n_rows - 1).reshape(-1)
+    bound, kind = k1_bound(packed, idx)
+    res = {"shape": f"table [{n_rows}, {W}] + lengths, idx [2, {m_k1}]",
+           "max_abs_err": k1_err, "bound_ms": bound, "bound_by": kind,
+           "plain_ms": median_ms(lambda: banded_dp.gather_planes_plain(
+               packed, lengths, idx), 10),
+           "library_ms": graph_ms(lambda: planes.index_select(1, idx_in))}
+    res["ms"] = graph_ms(lambda: banded_dp.gather_planes(packed, lengths,
+                                                          idx))
+    out["gather_planes"] = res
+    log(f"K1 gather_planes at {tag} shape ({res['shape']}): exact; "
+        + json.dumps({k: v for k, v in res.items() if k != "shape"}))
+    del k1, planes, idx_in
+
+    pairs = lcs_pairs(m_k2, 1, dev)
+    ragged = ragged_lcs_pairs(m_k2, 2, dev)
+    k2_err = 0
+    for name, args, Es in (("100 bp", pairs, (1, 2, 3, 7)),
+                           ("ragged", ragged, (0, 1, 2, 3, 7, 15))):
+        for E in Es:
+            err = int((banded_dp.banded_lcs(*args, E).long()
+                       - banded_dp.banded_lcs_batch(*args, E).long())
+                      .abs().max())
+            if err != 0:
+                fail(f"{tag}: banded_lcs (E={E}, {name} pairs) differs "
+                     f"from its plain version ({err})")
+            k2_err = max(k2_err, err)
+    del ragged
+    bound, kind = k2_bound(pairs[0], *pairs[2:], 2, n_sm)
+    res = {"shape": f"{m_k2} pairs of 100 bp, E=2",
+           "max_abs_err": k2_err, "bound_ms": bound, "bound_by": kind,
+           "plain_ms": median_ms(
+               lambda: banded_dp.banded_lcs_batch(*pairs, 2), 5),
+           "library_ms": None}
+    res["ms"] = graph_ms(lambda: banded_dp.banded_lcs(*pairs, 2))
+    out["banded_lcs"] = res
+    log(f"K2 banded_lcs at {tag} shape ({res['shape']}; E=1,2,3,7 exact; "
+        f"ragged pairs at E=0,1,2,3,7,15 exact): "
+        + json.dumps({k: v for k, v in res.items() if k != "shape"}))
+    for name, r in out.items():
+        log(f"{name} at {tag} shape: {r['ms']:.4f} ms, bound "
+            f"{1e3 * r['bound_ms']:.2f} us ({r['bound_by']}), bound share "
+            f"{r['bound_ms'] / r['ms']:.3f}")
+    return out
+
+
+def real_launch_errors(banded_dp, seen) -> dict:
+    """{kernel: max abs error}: the output of each launch phase 6 saw on
+    B's path against the plain version on the same inputs (B's own read
+    table, pairs, lengths and offsets), exact."""
+    import torch
+    errs = {}
+    for name, plain in (("gather_planes", banded_dp.gather_planes_plain),
+                        ("banded_lcs", banded_dp.banded_lcs_batch)):
+        errs[name] = 0
+        for args, got in seen[name]:
+            errs[name] = max(errs[name], int(
+                (got.long() - plain(*args).long()).abs().max()))
+        if errs[name] != 0:
+            fail(f"configuration B: a launch of {name} differs from its "
+                 f"plain version on the same inputs ({errs[name]})")
+    lcs = [a for a, _ in seen["banded_lcs"]]
+    log("B: every launch exact against its plain version on its own "
+        f"inputs ({len(seen['gather_planes'])} K1, {len(lcs)} K2); K2 "
+        "lengths " + ", ".join(
+            f"{int(a[2].min())}-{int(a[2].max())}/"
+            f"{int(a[3].min())}-{int(a[3].max())}" for a in lcs)
+        + ", offsets " + ", ".join(
+            f"{int(a[4].min())}-{int(a[4].max())}" for a in lcs)
+        + f", E {sorted({a[5] for a in lcs})}")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -243,14 +431,44 @@ def lcs_pairs(m: int, seed: int, dev):
     c2 = torch.where(noise, (c2 + 1) % 4, c2)
     c1[:, 100:] = 0
     c2[:, 100:] = 0
-
-    def words(c):
-        sh = 2 * torch.arange(16, device=dev)
-        w = (c.view(m, W, 16) << sh).sum(-1)
-        return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).T \
-            .contiguous()
     lens = torch.full((m,), READ_LEN, dtype=torch.int32, device=dev)
-    return words(c1), words(c2), lens, lens.clone(), off.to(torch.int32)
+    return (pair_major_words(c1), pair_major_words(c2), lens, lens.clone(),
+            off.to(torch.int32))
+
+
+def ragged_lcs_pairs(m: int, seed: int, dev):
+    """Pair-major words (W = 8) of m pairs of reads of unequal lengths,
+    mostly 60-128 bases and one in ten 1-128: read 2 is read 1 from offset
+    0-70 on (one in twenty 0-129, often past read 1's end), with 4%
+    substitutions; random bases past each read's length, which the
+    kernels must ignore."""
+    import torch
+    L = 128
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda hi, lo=0: torch.randint(  # noqa: E731
+        lo, hi, (m,), generator=g, device=dev)
+    c1 = torch.randint(0, 4, (m, L), generator=g, device=dev)
+    off = torch.where(rnd(20) == 0, rnd(130), rnd(71))
+    src = torch.arange(L, device=dev)[None, :] + off[:, None]
+    c2 = torch.where(src < L, c1.gather(1, src.clamp(max=L - 1)),
+                     torch.randint(0, 4, (m, L), generator=g, device=dev))
+    noise = torch.rand((m, L), generator=g, device=dev) < 0.04
+    c2 = torch.where(noise, (c2 + 1) % 4, c2)
+    lens = [torch.where(rnd(10) == 0, rnd(L + 1, 1), rnd(L + 1, 60))
+            .to(torch.int32) for _ in range(2)]
+    return (pair_major_words(c1), pair_major_words(c2), *lens,
+            off.to(torch.int32))
+
+
+def pair_major_words(c):
+    """int32[W, m] packed words of base codes c [m, 16W] (2 bits a base,
+    base 0 in the low bits)."""
+    import torch
+    m, L = c.shape
+    sh = 2 * torch.arange(16, device=c.device)
+    w = (c.view(m, L // 16, 16) << sh).sum(-1)
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).T \
+        .contiguous()
 
 
 def run_cli(tag: str, paths, n_reads: int, extra_args=(), env=None):
@@ -314,6 +532,8 @@ def report(tag: str, stats: dict, n_reads: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def main() -> int:
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]) \
+        .parse_args()
     if not (ROOT / "alga_tpu_torch").is_dir():
         fail(f"alga_tpu_torch/ not found beside {Path(__file__).name}: run "
              "from a checkout of the repository")
@@ -322,8 +542,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     sys.path.insert(0, str(ROOT))
-    from alga_tpu_torch import _host, cli, pipeline
+    from alga_tpu_torch import cli, config, native, pipeline
     from alga_tpu_torch.graph import device_join, prefsuf
+    from alga_tpu_torch.io import fastx
     from alga_tpu_torch.ops import _cuda, banded_dp
 
     # --- 1 device ---------------------------------------------------------
@@ -332,7 +553,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(f"device: {kind} x{torch.cuda.device_count()}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
-    if not _host.native.available():
+    if not native.available():
         fail("native host engine native/libalga_host.so unavailable")
     log("native host engine: available")
 
@@ -345,50 +566,11 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log(f"ptxas: {line.strip()}")
 
-    # --- 3 kernels against their plain versions --------------------------
-    gen = torch.Generator(device=dev).manual_seed(0)
-    W = 7                                 # words of a 100 bp read
-    n_rows, n_idx = 920_000, 1 << 20
-    planes = torch.randint(-2**31, 2**31 - 1, (W + 1, n_rows),
-                           generator=gen, device=dev, dtype=torch.int32)
-    idx = torch.randint(-1000, n_rows + 1000, (n_idx,), generator=gen,
-                        device=dev, dtype=torch.int32)
-    k1 = banded_dp.gather_planes(planes, idx)
-    k1_plain = banded_dp.gather_planes_plain(planes, idx)
-    k1_err = int((k1.long() - k1_plain.long()).abs().max())
-    if k1_err != 0 or not torch.equal(k1, k1_plain):
-        fail(f"gather_planes differs from its plain version ({k1_err})")
-    k1_ms = median_ms(lambda: banded_dp.gather_planes(planes, idx), 20)
-    k1_plain_ms = median_ms(
-        lambda: banded_dp.gather_planes_plain(planes, idx), 20)
-    log(f"K1 gather_planes [{W + 1}, {n_rows}] x {n_idx} idx: exact; "
-        f"{k1_ms:.4f} ms vs plain {k1_plain_ms:.4f} ms")
-
-    pairs_main = lcs_pairs(1 << 18, 1, dev)
-    k2 = banded_dp.banded_lcs(*pairs_main, 2)
-    k2_plain = banded_dp.banded_lcs_batch(*pairs_main, 2)
-    k2_err = int((k2.long() - k2_plain.long()).abs().max())
-    if k2_err != 0:
-        fail(f"banded_lcs (E=2) differs from its plain version ({k2_err})")
-    for E in (1, 3, 7):
-        small = lcs_pairs(1 << 14, 10 + E, dev)
-        e_err = int((banded_dp.banded_lcs(*small, E).long()
-                     - banded_dp.banded_lcs_batch(*small, E).long())
-                    .abs().max())
-        if e_err != 0:
-            fail(f"banded_lcs (E={E}) differs from its plain version")
-        k2_err = max(k2_err, e_err)
-    k2_ms = median_ms(lambda: banded_dp.banded_lcs(*pairs_main, 2), 20)
-    k2_plain_ms = median_ms(
-        lambda: banded_dp.banded_lcs_batch(*pairs_main, 2), 5)
-    log(f"K2 banded_lcs 2^18 pairs of 100 bp, E=2 (and 2^14 at E=1,3,7): "
-        f"exact; {k2_ms:.4f} ms vs plain {k2_plain_ms:.4f} ms; "
-        f"mean LCS {float(k2.float().mean()):.2f}")
-    del planes, idx, k1, k1_plain, pairs_main, k2, k2_plain
+    # --- 3 kernels against their plain versions, main shapes -------------
+    k_main = kernel_phase(dev, banded_dp, "main", 920_000, 1 << 19, 1 << 18)
 
     # --- 4 device GCPS against the native engine -------------------------
-    fastx = _host.fastx
-    cfg = _host.config.AssemblyConfig()
+    cfg = config.AssemblyConfig()
     batch = fastx.build_read_batch(
         bench_40k_reads(), None, trim_left=cfg.read_end_trim_left,
         trim_right=cfg.read_end_trim_right,
@@ -396,7 +578,7 @@ def main() -> int:
         str_period=cfg.str_period_threshold)
     batch.valid &= ~fastx.mark_prefix_reads(batch)
     batch = pipeline.remap_paired_offsets(batch, paired=False)
-    tcfg = _host.config.autotune(cfg, batch.avg_read_length())
+    tcfg = config.autotune(cfg, batch.avg_read_length())
     batch.valid &= batch.lengths >= tcfg.li_kmer_intervals + tcfg.li_kmer_length
     gargs = (batch.packed, batch.lengths, len(batch), tcfg.min_overlap_pref_suf,
              tcfg.read_length_cap, tcfg.rsoe_min_overlap, tcfg.soes,
@@ -462,25 +644,60 @@ def main() -> int:
         f"CLI wall {res_a['cli_wall_s']:.1f}s")
 
     # --- 6 configuration B: the main path through both kernels -----------
-    cfg_b = _host.config.AssemblyConfig(
+    cfg_b = config.AssemblyConfig(
         file1=b_paths[0], file2=b_paths[1],
         output=str(WORK / "B_contigs.fasta"), error_rate=ERR_RATE,
         use_acler_instead_of_aclcs=False)
+    # every launch's shape, to time the kernels at B's own shapes below,
+    # and its inputs and output, to hold them against the plain versions
+    shapes = {"gather_planes": [], "banded_lcs": []}
+    seen = {"gather_planes": [], "banded_lcs": []}
+    real_k1, real_k2 = banded_dp.gather_planes, banded_dp.banded_lcs
+
+    def k1_logged(packed, lengths, idx):
+        shapes["gather_planes"].append((packed.shape[0], idx.shape[1]))
+        out = real_k1(packed, lengths, idx)
+        seen["gather_planes"].append(
+            ((packed.clone(), lengths.clone(), idx.clone()), out.clone()))
+        return out
+
+    def k2_logged(*args):
+        shapes["banded_lcs"].append(args[0].shape[1])
+        out = real_k2(*args)
+        seen["banded_lcs"].append(
+            (tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+             out.clone()))
+        return out
+    banded_dp.gather_planes, banded_dp.banded_lcs = k1_logged, k2_logged
     banded_dp.reset_launches()
-    res = pipeline.assemble_to_file(cfg_b, device=dev)
-    torch.cuda.synchronize()
+    try:
+        res = pipeline.assemble_to_file(cfg_b, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        banded_dp.gather_planes, banded_dp.banded_lcs = real_k1, real_k2
     launches = dict(banded_dp.LAUNCHES)
     res_b = report("B", res.stats, n_file_reads)
     lcs_pairs_b = res.stats["counters"].get("ach_lcs_pairs", 0)
-    log(f"B: kernel launches {launches}; pairs through K2: {lcs_pairs_b}")
+    log(f"B: kernel launches {launches}; pairs through K2: {lcs_pairs_b}; "
+        f"K1 (table rows, pairs) per launch {shapes['gather_planes']}; K2 "
+        f"pairs per launch {shapes['banded_lcs']}")
     if min(launches.values()) == 0:
         fail(f"configuration B did not launch every kernel: {launches}")
+    if launches["gather_planes"] != launches["banded_lcs"]:
+        fail(f"configuration B: K1 did not launch once per LCS batch "
+             f"({launches})")
+    real_err = real_launch_errors(banded_dp, seen)
     contigs_b = [c.seq for c in res.contigs if c.seq != "CCCC"]
     ident = index.kmer_share(contigs_b)
     if not contigs_b or ident < 0.9:
         fail(f"configuration B: {len(contigs_b)} contigs, 31-mer identity "
              f"{ident:.3f}")
     log(f"B: {len(contigs_b)} contigs, 31-mer identity {ident:.4f}")
+
+    # --- 3 (continued) the kernels at B's own shapes ----------------------
+    b_rows = int(statistics.median(n for n, _ in shapes["gather_planes"]))
+    b_pairs = int(statistics.median(shapes["banded_lcs"]))
+    k_b = kernel_phase(dev, banded_dp, "B", b_rows, b_pairs, b_pairs)
 
     # --- 7 configuration A on the fused GCPS path and device consensus ---
     fasta_7, res_7 = run_cli(
@@ -519,19 +736,26 @@ def main() -> int:
          "A_trace_kernels": n_kernels,
          "B_lcs_pairs": lcs_pairs_b, "B_launches": launches,
          "B_kmer_identity": ident, "build": _cuda.BUILD_INFO.get("seconds"),
+         "B_launch_shapes": shapes, "B_launch_errors": real_err,
+         "kernels_main": k_main, "kernels_B": k_b,
          "graph_40k": {"edges": g_dev.num_edges, "seconds": secs}},
         indent=1))
 
-    kernels = [
-        {"name": "gather_planes", "route": "cuda", "source": K1_SOURCE,
-         "replaces": "alga_tpu/ops/pallas/banded_dp.py:69",
-         "launches": launches["gather_planes"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "banded_lcs", "route": "cuda", "source": K1_SOURCE,
-         "replaces": "alga_tpu/ops/pallas/banded_dp.py:152",
-         "launches": launches["banded_lcs"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-    ]
+    kernels = []
+    for name, replaces in (("gather_planes", "banded_dp.py:69"),
+                           ("banded_lcs", "banded_dp.py:152")):
+        main, at_b = k_main[name], k_b[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
+            "replaces": f"alga_tpu/ops/pallas/{replaces}",
+            "launches": launches[name],
+            "max_abs_err": max(main["max_abs_err"], at_b["max_abs_err"],
+                               real_err[name]),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "shape")},
+            "at_B_shape": {k: at_b[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "shape")}})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@ from alga_tpu.core import packing
 from alga_tpu.graph import device_join as jdj
 from alga_tpu.graph import device_scale as jds
 from alga_tpu.graph import prefsuf as jprefsuf
-from alga_tpu.utils import timers
+from alga_tpu.utils import timers as jtimers
 from alga_tpu_torch.graph import device_join, device_scale, prefsuf
+from alga_tpu_torch.utils import timers
 from tests.test_prefsuf import random_genome, reads_from_genome
 
 torch.set_num_threads(2)
@@ -115,14 +116,18 @@ def test_counters_match_jax(rng, path):
                            jdj.gcps_graph_device),
                  "scale": (device_scale.gcps_graph_device_scale,
                            jds.gcps_graph_device_scale)}[path]
+    # each package bumps its own counters
+    jtimers.reset_counters()
     timers.reset_counters()
     ref(*args)
-    want = timers.counters_report()
+    want = jtimers.counters_report()
+    assert timers.counters_report() == {}
     # a capacity retry of the JAX version; the port sizes from the data
     want.pop("gcps_scale_retries", None)
-    timers.reset_counters()
+    jtimers.reset_counters()
     port(*args, device="cpu")
     got = timers.counters_report()
+    assert jtimers.counters_report() == {}
     assert set(want) == {"gcps_candidates", "gcps_matches",
                          "gcps_domination_checks"}
     assert got == want

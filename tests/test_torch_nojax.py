@@ -1,8 +1,10 @@
-"""alga_tpu_torch runs without jax: it imports in a process where jax
-cannot be imported and assembles there on the CPU, also with the fused
-GCPS path and the device consensus forced (ALGA_GCPS_DEVICE=small,
-ALGA_DEVICE_CONSENSUS=1); without CUDA it refuses to pick a device on its
-own; and no file of it imports jax."""
+"""alga_tpu_torch runs without jax and without alga_tpu: it imports in a
+process where neither can be imported and assembles there on the CPU, in
+configuration A (the default run) and configuration B (error_rate=0.02,
+ACLCS fallback on), also with the fused GCPS path and the device consensus
+forced (ALGA_GCPS_DEVICE=small, ALGA_DEVICE_CONSENSUS=1); without CUDA it
+refuses to pick a device on its own; and no file of it, nor chip_smoke.py,
+imports jax or alga_tpu."""
 
 import os
 import re
@@ -23,20 +25,30 @@ ROOT = Path(__file__).resolve().parents[1]
 _NOJAX = r"""
 import sys
 sys.modules["jax"] = None            # any `import jax` now fails
+sys.modules["alga_tpu"] = None       # and any import of alga_tpu
 sys.path.insert(0, {root!r})
 import numpy as np
 import torch
 torch.set_num_threads(2)
 import alga_tpu_torch
-from alga_tpu_torch.pipeline import AssemblyConfig, assemble
+from alga_tpu_torch.config import AssemblyConfig
+from alga_tpu_torch.pipeline import assemble
 from tests.simulate import random_genome, simulate_single
-rng = np.random.default_rng(9)
-genome = random_genome(rng, 3000)
-reads = simulate_single(genome, rng, read_len=100, coverage=25)
-res = assemble(AssemblyConfig(), file1_seqs=reads, device="cpu")
-assert res.contigs, "no contigs"
-assert sys.modules["jax"] is None
-assert not [m for m in sys.modules if m.startswith(("jax.", "jaxlib"))]
+for name, kw, err in (
+        ("A", dict(), 0.0),
+        ("B", dict(error_rate=0.02, use_acler_instead_of_aclcs=False), 0.01)):
+    rng = np.random.default_rng(9)
+    genome = random_genome(rng, 3000)
+    reads = simulate_single(genome, rng, read_len=100, coverage=25,
+                            error_rate=err)
+    res = assemble(AssemblyConfig(**kw), file1_seqs=reads, device="cpu")
+    assert res.contigs, f"{{name}}: no contigs"
+    if name == "B":
+        assert res.stats["counters"]["ach_lcs_pairs"] > 0
+assert sys.modules["jax"] is None and sys.modules["alga_tpu"] is None
+loaded = [m for m in sys.modules
+          if m.startswith(("jax.", "jaxlib", "alga_tpu."))]
+assert not loaded, loaded
 print("NOJAX_OK", len(res.contigs))
 """
 
@@ -63,8 +75,12 @@ def test_assemble_without_device_needs_cuda():
 
 
 def test_no_jax_import_in_the_port():
-    pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
-    bad = [str(p) for p in (ROOT / "alga_tpu_torch").rglob("*.py")
-           if pat.search(p.read_text())]
-    assert not bad, f"jax imported in {bad}"
-    assert not pat.search((ROOT / "chip_smoke.py").read_text())
+    """Neither jax nor alga_tpu (the name alone, or a module of it) is
+    imported by a file of the port or by chip_smoke.py."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|alga_tpu)(?![\w])", re.M)
+    files = [*(ROOT / "alga_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    bad = [str(p) for p in files if pat.search(p.read_text())]
+    assert not bad, f"jax or alga_tpu imported in {bad}"
+    assert pat.search("from alga_tpu.core import packing")
+    assert pat.search("import alga_tpu")
+    assert not pat.search("from alga_tpu_torch import native")

@@ -133,23 +133,39 @@ def test_banded_lcs_batch_matches_jax(E):
     np.testing.assert_array_equal(got, pallas)
 
 
-def test_gather_planes_plain_matches_jax(rng):
+@pytest.mark.parametrize("M", [1, 333])
+@pytest.mark.parametrize("W", [1, 7, 8])
+def test_gather_planes_plain_matches_jax(rng, W, M):
+    """K1's plain version against the TPU path it replaces end to end:
+    _rows_from_planes(mxu_gather_planes(_table_planes(...), idx)), the
+    Pallas gather in interpret mode, for each side of the pairs; indices
+    outside [0, N) give zeros."""
     import jax
     import jax.numpy as jnp
-    planes = rng.integers(0, 256, (16, 100)).astype(np.int32)
-    idx = rng.integers(-20, 130, 700).astype(np.int32)
+    n = 100
+    packed = rng.integers(0, 2**32, (n, W), dtype=np.uint64).astype(np.uint32)
+    lengths = rng.integers(0, 16 * W + 1, n).astype(np.int32)
+    idx = rng.integers(-20, n + 30, (2, M)).astype(np.int32)
+    idx[0, 0] = -1                       # out of range on both sides
+    idx[1, -1] = n
+    want = []
     with jax.enable_x64(False):
-        want = np.asarray(jbd.mxu_gather_planes(
-            jnp.asarray(planes), jnp.asarray(idx), interpret=True))
-    got = banded_dp.gather_planes_plain(_t(planes, torch.int32),
-                                        _t(idx, torch.int32))
+        planes = jbd._table_planes(jnp.asarray(packed), jnp.asarray(lengths))
+        for side in idx:
+            words, lens = jbd._rows_from_planes(jbd.mxu_gather_planes(
+                planes, jnp.asarray(side), interpret=True), W)
+            want.append(np.concatenate([np.asarray(words).view(np.int32),
+                                        np.asarray(lens)[None]]))
+    want = np.stack(want)
+    args = (torch.from_numpy(packed.view(np.int32)),
+            torch.from_numpy(lengths), torch.from_numpy(idx))
+    got = banded_dp.gather_planes_plain(*args)
+    assert got.shape == (2, W + 1, M)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert ((idx < 0) | (idx >= 100)).any()
+    assert not want[0, :, 0].any() and not want[1, :, -1].any()
     # the wrapper takes the plain version for a CPU tensor and counts no launch
     banded_dp.reset_launches()
-    got2 = banded_dp.gather_planes(_t(planes, torch.int32),
-                                   _t(idx, torch.int32))
-    np.testing.assert_array_equal(got2.numpy(), want)
+    np.testing.assert_array_equal(banded_dp.gather_planes(*args).numpy(), want)
     assert banded_dp.LAUNCHES == {"gather_planes": 0, "banded_lcs": 0}
 
 
