@@ -93,15 +93,21 @@ def _ragged_arange(counts: torch.Tensor, total: int):
     return owner, rank
 
 
+def _dom_cond(A, ellA, offA, Br, ellB, offB) -> torch.Tensor:
+    """bool per (pair A, remover B) slot: the domination predicate short
+    of the packed compare (ref GCPS.cpp:434-451): B is later (larger ell,
+    then larger id), offB > 0, offA >= offB, A != B, and B ends at or past
+    A's end."""
+    later = (ellB > ellA) | ((ellB == ellA) & (Br > A))
+    return (later & (Br != A) & (offB > 0) & (offA >= offB)
+            & ((offB + ellB) + (offA - offB) - (offA + ellA) >= 0))
+
+
 def _dominated(packed_pad, A, ellA, offA, Br, ellB, offB,
                W3: int) -> torch.Tensor:
-    """bool per (pair A, remover B) slot: B dominates A (ref
-    GCPS.cpp:434-451): B is later (larger ell, then larger id), offB > 0,
-    offA >= offB, A != B, B ends at or past A's end, and
+    """bool per (pair A, remover B) slot: B dominates A: `_dom_cond` and
     A[offA-offB : offA] == B[0 : offB]."""
-    later = (ellB > ellA) | ((ellB == ellA) & (Br > A))
-    cond = (later & (Br != A) & (offB > 0) & (offA >= offB)
-            & ((offB + ellB) + (offA - offB) - (offA + ellA) >= 0))
+    cond = _dom_cond(A, ellA, offA, Br, ellB, offB)
     sel = cond.nonzero()[:, 0]
     cond[sel] = _verify(packed_pad, A[sel], (offA - offB)[sel], Br[sel],
                         offB[sel], W3)

@@ -6,8 +6,9 @@ imports ops.align (and so jax) at the top.  This port keeps its calls:
 the native engine extracts the LI k-mers, generates the PKB candidate
 pairs and replays the reference's branch-marker loop; the unique
 (id1, id2, offset) triples are verified by this package's
-`ach_batch_auto` on the given device.  See the JAX module's docstring
-for the execution model (ref GraphCreatorLI.cpp,
+`ach_batch_auto` on the given device, or split over the ranks of a mesh
+by `ach_batch_mesh` in the ACLER-only configuration.  See the JAX
+module's docstring for the execution model (ref GraphCreatorLI.cpp,
 GraphCreatorPairwiseKmerBranch.cpp, main.cpp:300-355).
 """
 
@@ -16,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from alga_tpu_torch import native
-from alga_tpu_torch.ops.align import ach_batch_auto
+from alga_tpu_torch.ops.align import ach_batch_auto, ach_batch_mesh
 
 
 def _native():
@@ -79,7 +80,7 @@ def _gen_candidate_pairs(rid_s, ind_s, starts, ends, read_lens, cfg,
 
 
 def _verify_pairs(a1, a2, off, codes, packed, read_lens, cfg,
-                  min_device_batch, device=None):
+                  min_device_batch, device=None, mesh=None):
     """Batch ACH verification over unique (id1, id2, offset) triples."""
     if len(a1) == 0:
         return np.zeros(0, dtype=bool)
@@ -97,8 +98,12 @@ def _verify_pairs(a1, a2, off, codes, packed, read_lens, cfg,
         trip = np.stack([a1, a2, off], axis=1)
         uniq, inv = np.unique(trip, axis=0, return_inverse=True)
         u1, u2, uo = uniq[:, 0], uniq[:, 1], uniq[:, 2]
-    can = ach_batch_auto(packed, codes, read_lens, u1, u2, uo, cfg,
-                         min_device_batch=min_device_batch, device=device)
+    if mesh is not None and cfg.use_acler_instead_of_aclcs:
+        can = ach_batch_mesh(mesh, packed, read_lens, u1, u2, uo, cfg)
+    else:
+        can = ach_batch_auto(packed, codes, read_lens, u1, u2, uo, cfg,
+                             min_device_batch=min_device_batch,
+                             device=device)
     return can[inv]
 
 
@@ -114,9 +119,10 @@ def _replay_runs_auto(adj_add, rid_s, ind_s, starts, ends, pi, pj,
 def pkb_supplement(adj_add, codes, lengths, read_lens, cfg,
                    align_from: np.ndarray, align_to: np.ndarray,
                    priorities_rotations: int = 4, packed=None,
-                   min_device_batch: int = 200_000, *, device=None):
+                   min_device_batch: int = 200_000, *, device=None,
+                   mesh=None):
     """Run the LI/PKB supplement (native extraction and replay, batched
-    ACH verification on `device`).
+    ACH verification on `device`, or over `mesh` for ACLER).
 
     `adj_add` is the pipeline's SupplementAdj (sorted base keys plus an
     overlay of added edges); `packed` is the uint32[N, W] read store."""
@@ -145,7 +151,7 @@ def pkb_supplement(adj_add, codes, lengths, read_lens, cfg,
                     rid_s[pi[sel]], rid_s[pj[sel]],
                     ind_s[pi[sel]] - ind_s[pj[sel]],
                     codes, packed, read_lens, cfg, min_device_batch,
-                    device=device)
+                    device=device, mesh=mesh)
             _replay_runs_auto(adj_add, rid_s, ind_s, starts, ends, pi, pj,
                               ok, can)
         priorities = priorities[1:] + priorities[:1]   # rotate (ref LI.cpp:25)

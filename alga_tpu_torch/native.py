@@ -49,6 +49,14 @@ def get_lib():
     lib.alga_simplify_graph_old.argtypes = [
         ctypes.c_int32, ctypes.c_int64, i32p, i32p, i32p, u8p, i32p,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, i32p, i32p, i32p]
+    lib.alga_mst_pass.restype = ctypes.c_int64
+    lib.alga_mst_pass.argtypes = [
+        ctypes.c_int32, ctypes.c_int64, i32p, i32p, i32p,
+        ctypes.c_int32, ctypes.c_int32, i32p, i32p, i32p]
+    lib.alga_mst_pops.restype = ctypes.c_int64
+    lib.alga_mst_pops.argtypes = [
+        ctypes.c_int32, ctypes.c_int64, i32p, i32p, i32p,
+        i32p, ctypes.c_int64, ctypes.c_int32, i32p, i32p, i32p]
 
     lib.alga_consensus.restype = None
     lib.alga_consensus.argtypes = [
@@ -134,6 +142,10 @@ def get_lib():
     lib.alga_fastx_fill.argtypes = [
         u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, u8p, i64p,
         ctypes.c_int64, i64p, ctypes.c_int64]
+    lib.alga_fastx_fill_range.restype = None
+    lib.alga_fastx_fill_range.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, u8p, i64p,
+        ctypes.c_int64, ctypes.c_int64, i64p, ctypes.c_int64]
     u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
     lib.alga_window_hash.restype = None
     lib.alga_window_hash.argtypes = [
@@ -204,6 +216,36 @@ def preprocess_pack(raw, raw_lens, *, trim_left: int, trim_right: int,
 
 
 _FX_FMT = {"my_input": 0, "fasta": 1, "fastq": 2}
+
+
+def fastx_scan(buf: np.ndarray, fmt: str, nthreads: int = 0):
+    """Pass-1 parallel scan only: (record count, max record length, meta,
+    nchunks) — cheap (line counting), used by every process of a
+    multi-host ingest to agree on the global record layout."""
+    lib = get_lib()
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    maxlen = np.zeros(1, dtype=np.int64)
+    cap = max(256, (os.cpu_count() or 1) * 4)
+    meta = np.zeros(3 * cap, dtype=np.int64)
+    nchunks = np.zeros(1, dtype=np.int64)
+    n = int(lib.alga_fastx_scan(buf, len(buf), _FX_FMT[fmt], maxlen, meta,
+                                cap, nchunks, nthreads))
+    return n, int(maxlen[0]), meta, int(nchunks[0])
+
+
+def fastx_fill_range(buf: np.ndarray, fmt: str, lpad: int,
+                     rec_lo: int, rec_hi: int, meta, nchunks: int):
+    """Pass-2 fill of records [rec_lo, rec_hi) into a dense byte matrix
+    (the per-process slice of a multi-host ingest)."""
+    lib = get_lib()
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    m = max(0, rec_hi - rec_lo)
+    mat = np.zeros((m, max(1, lpad)), dtype=np.uint8)
+    lens = np.zeros(m, dtype=np.int64)
+    if m:
+        lib.alga_fastx_fill_range(buf, len(buf), _FX_FMT[fmt], mat.shape[1],
+                                  mat, lens, rec_lo, rec_hi, meta, nchunks)
+    return mat, lens
 
 
 def fastx_parse(buf: np.ndarray, fmt: str, nthreads: int = 0):
@@ -302,6 +344,25 @@ def simplify_graph_old(g, batch, mopp: int, modb: int, threads: int = 6):
                                     out_src, out_dst, out_off)
     batch.valid &= valid.astype(bool)
     return OverlapGraph(n, out_src[:m].copy(), out_dst[:m].copy(), out_off[:m].copy())
+
+
+def mst_pass(g, mopp_scaled: int, threads: int = 6):
+    """Native removeShortParallelPaths alone (used by the sharded
+    simplifier orchestration); returns the post-pass OverlapGraph in
+    canonical (src, offset, dst) order."""
+    from alga_tpu_torch.graph.overlap_graph import OverlapGraph
+    lib = get_lib()
+    ne = g.num_edges
+    src = np.ascontiguousarray(g.src, dtype=np.int32)
+    dst = np.ascontiguousarray(g.dst, dtype=np.int32)
+    off = np.ascontiguousarray(g.offset, dtype=np.int32)
+    out_src = np.empty(max(ne, 1), dtype=np.int32)
+    out_dst = np.empty(max(ne, 1), dtype=np.int32)
+    out_off = np.empty(max(ne, 1), dtype=np.int32)
+    m = lib.alga_mst_pass(g.n, ne, src, dst, off, mopp_scaled, threads,
+                          out_src, out_dst, out_off)
+    return OverlapGraph(g.n, out_src[:m].copy(), out_dst[:m].copy(),
+                        out_off[:m].copy())
 
 
 def contract_and_walk(g, batch, mopp: int, min_output_length: int,
@@ -636,6 +697,25 @@ def sort3_u64(hi, lo, rest, threads: int = 0) -> np.ndarray:
     order = np.empty(max(len(hi), 1), dtype=np.int64)
     lib.alga_sort3_u64(hi, lo, rest, len(hi), order, threads)
     return order[: len(hi)]
+
+def mst_pops(g, seeds, mopp_scaled: int):
+    """Apply MST pops for an explicit seed plan (wave order) — the host's
+    O(changes) application step of the sharded MST pass."""
+    from alga_tpu_torch.graph.overlap_graph import OverlapGraph
+    lib = get_lib()
+    ne = g.num_edges
+    src = np.ascontiguousarray(g.src, dtype=np.int32)
+    dst = np.ascontiguousarray(g.dst, dtype=np.int32)
+    off = np.ascontiguousarray(g.offset, dtype=np.int32)
+    seeds = np.ascontiguousarray(seeds, dtype=np.int32)
+    out_src = np.empty(max(ne, 1), dtype=np.int32)
+    out_dst = np.empty(max(ne, 1), dtype=np.int32)
+    out_off = np.empty(max(ne, 1), dtype=np.int32)
+    m = lib.alga_mst_pops(g.n, ne, src, dst, off, seeds, len(seeds),
+                          mopp_scaled, out_src, out_dst, out_off)
+    return OverlapGraph(g.n, out_src[:m].copy(), out_dst[:m].copy(),
+                        out_off[:m].copy())
+
 
 def pkb_pairgen(rid_s, ind_s, starts, ends, lens, moc: int, min_off: int,
                 min_ovl: int, af, at, threads: int = 0):

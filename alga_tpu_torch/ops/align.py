@@ -7,7 +7,8 @@
     ops/banded_dp.py on the tensors' device.
   * ACH (ref AlignmentControllerHybrid.cpp:46-86): guards + dispatch —
     `ach_batch_auto`, with the numpy twin `np_ach_batch` for small
-    batches.
+    batches, and `ach_batch_mesh`, its ACLER-only form split over the
+    ranks of a mesh.
 """
 
 from __future__ import annotations
@@ -238,4 +239,38 @@ def ach_batch_auto(packed, codes, lengths, r1, r2, offsets, cfg,
         idx = np.flatnonzero(need)
         ok[idx] = _lcs_accept(table, r1[idx], r2[idx], offsets[idx],
                               overlap[idx], cfg)
+    return ok
+
+
+def ach_batch_mesh(mesh, packed, lengths, r1, r2, offsets, cfg) -> np.ndarray:
+    """bool[M]: ACH over pairs split over the ranks of `mesh` (alga_tpu's
+    ach_batch_mesh, ops/align.py:410): each rank runs `acler_batch` on its
+    contiguous share of the pairs against the whole store on its device,
+    and every rank gets all verdicts.  ACLER only (the supplement's retuned
+    configuration, use_acler_instead_of_aclcs=True); the ACLCS fallback
+    takes ach_batch_auto on each rank."""
+    if not cfg.use_acler_instead_of_aclcs:
+        raise ValueError("ach_batch_mesh is ACLER-only; configurations with "
+                         "the LCS fallback use ach_batch_auto")
+    from alga_tpu_torch.parallel.mesh import gather_all
+    m = len(r1)
+    timers.bump("ach_total_alignments", m)
+    if m == 0:
+        return np.zeros(0, dtype=bool)
+    lengths = np.asarray(lengths, dtype=np.int64)
+    r1 = np.asarray(r1, dtype=np.int64)
+    r2 = np.asarray(r2, dtype=np.int64)
+    offsets = np.asarray(offsets, dtype=np.int64)
+    share = slice(mesh.rank * m // mesh.d, (mesh.rank + 1) * m // mesh.d)
+    table = _table(np.asarray(packed), lengths, mesh.device)
+    t = lambda a: torch.from_numpy(a[share]).to(mesh.device)  # noqa: E731
+    acler = gather_all(mesh, acler_batch(
+        *table, t(r1), t(r2), t(offsets), table[0].shape[1],
+        cfg.max_offset_considered_for_alignment, cfg.min_overlap_area,
+        cfg.minimal_overlap_for_lcs_low_error,
+        cfg.alignment_controller_same_ends_length), "ach_acler").cpu().numpy()
+    guards = ((offsets >= cfg.min_offset_for_alignment)
+              & (lengths[r2] + offsets - lengths[r1] >= 0))
+    ok = acler & guards
+    timers.bump("ach_low_error_approved", int(ok.sum()))
     return ok

@@ -62,6 +62,33 @@ def substr_equal(packed, a_ids, a_starts, b_ids, match_lens,
     return ok
 
 
+def overlap_mismatch_count(packed, a_ids, a_starts, b_ids, match_lens,
+                           num_words: int) -> torch.Tensor:
+    """int64[M]: the number of bases t < match_len where A[a_start + t] !=
+    B[t]; a base differs iff either of its two bits does."""
+    packed_pad = _pad_words(packed)
+    a_ids = a_ids.to(torch.int64)
+    b_ids = b_ids.to(torch.int64)
+    a_starts = a_starts.to(torch.int64)
+    match_lens = match_lens.to(torch.int64)
+    total = torch.zeros_like(a_ids)
+    for w in range(num_words):
+        a_word = _shifted_words(packed_pad, a_ids, a_starts, w)
+        b_word = packed_pad[b_ids, min(w, packed.shape[1] - 1)]
+        rem = (match_lens - 16 * w).clamp(0, 16)
+        diff = (a_word ^ b_word) & _low_mask(2 * rem)
+        total += popcount32((diff | (diff >> 1)) & 0x55555555)
+    return total
+
+
+def np_mismatch_count(codes, a_id, a_start, b_id, match_len) -> int:
+    """Host oracle of overlap_mismatch_count for one query over a base-code
+    matrix."""
+    a = codes[a_id, a_start: a_start + match_len]
+    b = codes[b_id, :match_len]
+    return int((a != b).sum())
+
+
 def popcount32(x: torch.Tensor) -> torch.Tensor:
     """Set bits of int64 values in [0, 2^32) (SWAR: torch has no popcount)."""
     x = x - ((x >> 1) & 0x55555555)

@@ -1,13 +1,20 @@
-"""End-to-end assembly on one device (port of alga_tpu/pipeline.py; ref
+"""End-to-end assembly (port of alga_tpu/pipeline.py; ref
 src/main.cpp:57-779).
 
 Phases: read input → autotune → [correct] → dedup prefix reads → remap →
 overlap graph (GCPS, on the device) → [LI supplement, its ACH on the
 device] → simplify → contract → contigs → consensus (on the device under
-ALGA_DEVICE_CONSENSUS) → filter → trim → write.  Every phase but the
-device ones runs on the host: the native engine and its numpy twins, in
-the port's copy of alga_tpu's host layer.  There is no mesh: the port
-runs on one device.
+ALGA_DEVICE_CONSENSUS) → filter → trim → write.  The other phases run on
+the host: the native engine and its numpy twins, in the port's copy of
+alga_tpu's host layer.
+
+With `mesh=` (parallel/mesh.py) every rank of the mesh runs this with
+the same inputs: GCPS, the simplification passes and the chain discovery
+of the contraction run sharded over the ranks, the ACLER supplement
+splits its pairs over them, and the host phases run replicated, so every
+rank computes the same contigs.  Without one, `sharded_gcps` decides
+whether the GCPS phase alone runs on a mesh (`_gcps_mesh`), as in
+alga_tpu.
 """
 
 from __future__ import annotations
@@ -93,23 +100,56 @@ def remap_paired_offsets(batch, paired: bool):
     return nb
 
 
+def _gcps_mesh(cfg: TunedConfig, mesh=None, device=None):
+    """(mesh of the GCPS phase or None for one device, whether this call
+    made the process group).  A mesh given by the caller wins; "off"
+    never shards; "on" makes a mesh even of one rank; "auto" shards when
+    the default process group has more than one rank (the counterpart of
+    alga_tpu's "more than one accelerator visible")."""
+    if mesh is not None or cfg.sharded_gcps == "off":
+        return mesh, False
+    from alga_tpu_torch.parallel import mesh as mesh_mod
+    had_group = torch.distributed.is_initialized()
+    if cfg.sharded_gcps == "on" or (
+            had_group and torch.distributed.get_world_size() > 1):
+        return mesh_mod.make_mesh(device), not had_group
+    return None, False
+
+
 def build_graph_phase(batch, cfg: TunedConfig, timers: PhaseTimer, *,
-                      device=None):
-    """GCPS graph of the read store on `device`, after the short-read
-    removal of ref main.cpp:253-266."""
+                      device=None, mesh=None):
+    """GCPS graph of the read store on `device`, or sharded over `mesh`,
+    after the short-read removal of ref main.cpp:253-266.  A process
+    group that `_gcps_mesh` made for this phase is destroyed after it."""
     too_short = batch.lengths < cfg.li_kmer_intervals + cfg.li_kmer_length
     batch.valid &= ~too_short
     if too_short.any():
         _log(f"removed {int(too_short.sum())} reads shorter than "
              f"{cfg.li_kmer_intervals + cfg.li_kmer_length}")
+    mesh, made_group = _gcps_mesh(cfg, mesh, device)
     with timers.phase("graph_creator_prefsuf"):
-        st = store.to_device(batch, device)
-        g = prefsuf.build_gcps_graph(
-            st.packed, st.lengths, len(batch),
-            ell_min=cfg.min_overlap_pref_suf, cap=cfg.read_length_cap,
-            rsoe=cfg.rsoe_min_overlap, soes=cfg.soes,
-            align_from=st.valid, align_to=st.valid, device=device)
-        del st
+        if mesh is not None:
+            from alga_tpu_torch.parallel.sharded_gcps import \
+                gcps_graph_sharded
+            _log(f"sharded GCPS over {mesh.d} ranks")
+            try:
+                g = gcps_graph_sharded(
+                    mesh, batch.packed, batch.lengths, len(batch),
+                    ell_min=cfg.min_overlap_pref_suf,
+                    cap=cfg.read_length_cap, rsoe=cfg.rsoe_min_overlap,
+                    soes=cfg.soes, align_from=batch.valid,
+                    align_to=batch.valid)
+            finally:
+                if made_group:
+                    torch.distributed.destroy_process_group()
+        else:
+            st = store.to_device(batch, device)
+            g = prefsuf.build_gcps_graph(
+                st.packed, st.lengths, len(batch),
+                ell_min=cfg.min_overlap_pref_suf, cap=cfg.read_length_cap,
+                rsoe=cfg.rsoe_min_overlap, soes=cfg.soes,
+                align_from=st.valid, align_to=st.valid, device=device)
+            del st
     g = g.retain_min_offset()
     _log(f"overlap graph: {g.num_edges} edges over {g.n} reads")
     return g
@@ -145,7 +185,7 @@ class SupplementAdj:
         return merged.retain_min_offset()
 
 
-def run_supplement(g, batch, tcfg: TunedConfig, *, device=None):
+def run_supplement(g, batch, tcfg: TunedConfig, *, device=None, mesh=None):
     """LI/PKB supplement wiring (ref main.cpp:300-355): indeg==0&&outdeg>0
     gets alignTo, indeg>0&&outdeg==0 gets alignFrom; parameters re-tuned
     by supplement_retune."""
@@ -157,7 +197,7 @@ def run_supplement(g, batch, tcfg: TunedConfig, *, device=None):
     adapter = SupplementAdj(g)
     supp.pkb_supplement(adapter, None, batch.lengths, batch.lengths, scfg,
                         align_from, align_to, packed=batch.packed,
-                        device=device)
+                        device=device, mesh=mesh)
     out = adapter.to_graph()
     _log(f"supplement: {out.num_edges - g.num_edges:+d} edges")
     return out
@@ -165,11 +205,13 @@ def run_supplement(g, batch, tcfg: TunedConfig, *, device=None):
 
 def assemble(cfg: AssemblyConfig, file1_seqs: list[str] | None = None,
              file2_seqs: list[str] | None = None, *, batch=None,
-             paired: bool | None = None, device=None) -> AssemblyResult:
+             paired: bool | None = None, device=None,
+             mesh=None) -> AssemblyResult:
     """End-to-end assembly with the device phases on `device` (CUDA when
-    None; raises without it).  `batch`/`paired` inject a pre-built
+    None; raises without it), or sharded over `mesh` (see `_gcps_mesh`
+    and the module docstring).  `batch`/`paired` inject a pre-built
     SeqBatch."""
-    dev = device_mod.resolve(device)
+    dev = mesh.device if mesh is not None else device_mod.resolve(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     timers = PhaseTimer()
@@ -245,7 +287,7 @@ def assemble(cfg: AssemblyConfig, file1_seqs: list[str] | None = None,
         g = serialize.read_reference_graph(ck_before)
         _log(f"deserialized graph from {ck_before}: {g.num_edges} edges")
     else:
-        g = build_graph_phase(batch, tcfg, timers, device=dev)
+        g = build_graph_phase(batch, tcfg, timers, device=dev, mesh=mesh)
         if tcfg.serialize_graph:
             serialize.write_reference_graph(g, ck_before)
             _log(f"serialized graph to {ck_before}")
@@ -254,12 +296,12 @@ def assemble(cfg: AssemblyConfig, file1_seqs: list[str] | None = None,
     # --- error-tolerant LI/PKB supplement (ref main.cpp:300-355) ------------
     if tcfg.use_supplement:
         with timers.phase("graph_creator_supplement"):
-            g = run_supplement(g, batch, tcfg, device=dev)
+            g = run_supplement(g, batch, tcfg, device=dev, mesh=mesh)
 
     batch.valid &= ~g.isolated_nodes()          # ref main.cpp:358-359
 
     # --- simplify + contract + walk ----------------------------------------
-    use_native = cfg.use_native and native.available()
+    use_native = cfg.use_native and native.available() and mesh is None
     ck_after = (f"{ck_prefix}_mopp{tcfg.max_offset_parallel_paths}"
                 f"_modb{tcfg.max_offset_dangling_branches}"
                 f"_rsoe{tcfg.rsoe_min_overlap}-{tcfg.rsoe_number_to_retain}"
@@ -270,7 +312,14 @@ def assemble(cfg: AssemblyConfig, file1_seqs: list[str] | None = None,
         _log(f"deserialized simplified graph from {ck_after}")
     else:
         with timers.phase("graph_simplifier"):
-            if use_native:
+            if mesh is not None:
+                from alga_tpu_torch.parallel.sharded_simplify import \
+                    simplify_graph_old_sharded
+                g = simplify_graph_old_sharded(
+                    mesh, g, batch, tcfg.max_offset_parallel_paths,
+                    tcfg.max_offset_dangling_branches, threads=tcfg.threads,
+                    log=_log)
+            elif use_native:
                 g = native.simplify_graph_old(
                     g, batch, tcfg.max_offset_parallel_paths,
                     tcfg.max_offset_dangling_branches, threads=tcfg.threads)
@@ -302,12 +351,22 @@ def assemble(cfg: AssemblyConfig, file1_seqs: list[str] | None = None,
     else:
         with timers.phase("contract"):
             # ref main.cpp:412-429: contract loop, then a final
-            # retainOnlySmallestOffset fixes walk-time adjacency order
+            # retainOnlySmallestOffset fixes walk-time adjacency order;
+            # on a mesh the chain nodes are found by pointer doubling
+            chain_fn = None
+            if mesh is not None:
+                from alga_tpu_torch.parallel.sharded_contract import \
+                    chain_terminals_sharded
+
+                def chain_fn(cg_):
+                    return chain_terminals_sharded(
+                        mesh, cg_.to_overlap_graph())[0]
             cg = contract.ContractedGraph(g)
             for _ in range(2):
                 cg.retain_min_offset_inplace()
                 contract.simplify_contract(
-                    cg, tcfg.max_offset_parallel_paths, log=_log)
+                    cg, tcfg.max_offset_parallel_paths, log=_log,
+                    chain_mask_fn=chain_fn)
             cg.retain_min_offset_inplace()
         with timers.phase("contig_creator"):
             reliable = walk.mark_reliable_predecessors(

@@ -47,10 +47,24 @@ Phases; any failure ends the run with a non-zero exit code:
              byte-identical to phase 5's, a trace with CUDA kernel events,
              and the device-busy share of the assembly span (the union of
              kernel intervals over the span's length).
+  9 mesh     the mesh layer (alga_tpu_torch/parallel) on a one-rank NCCL
+             group from make_mesh(): (a) gcps_graph_sharded on phase 4's
+             40k reads and on A's 920k-slot batch, edges identical field
+             for field to prefsuf.build_gcps_graph's (first and second
+             call timed); (b) A through
+             assemble_distributed, FASTA byte-identical to phase 5's;
+             (c) B through pipeline.assemble(mesh=...), FASTA
+             byte-identical to phase 6's, both kernels launched and every
+             launch equal to its plain version; seconds and peak device
+             memory of each, reads/s of (b) and (c).  (d) With two or more
+             cards, (b) again on min(cards, 4) NCCL ranks, one per card;
+             with one card, a line saying that traffic across cards was
+             not exercised.
 
-The last three lines of standard output are the card's nvidia-smi line,
-the kernels' JSON record and the result line
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+The kernels' launch counts are those of phases 6 and 9c together (each
+counted from 0 just before its run).  The last three lines of standard
+output are the card's nvidia-smi line, the kernels' JSON record and the
+result line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Datasets and logs go to build/chip_smoke/ in the checkout.
 """
 
@@ -262,7 +276,42 @@ def kernel_phase(dev, banded_dp, tag, n_rows, m_k1, m_k2):
     return out
 
 
-def real_launch_errors(banded_dp, seen) -> dict:
+def logged_run(banded_dp, fn):
+    """(fn()'s result, launches, shapes, seen): fn run with both kernel
+    wrappers logging every launch's shape (to time the kernels at B's own
+    shapes) and its inputs and output (to hold them against the plain
+    versions), the launch counts set to 0 just before the run and read
+    just after."""
+    import torch
+    shapes = {"gather_planes": [], "banded_lcs": []}
+    seen = {"gather_planes": [], "banded_lcs": []}
+    real_k1, real_k2 = banded_dp.gather_planes, banded_dp.banded_lcs
+
+    def k1_logged(packed, lengths, idx):
+        shapes["gather_planes"].append((packed.shape[0], idx.shape[1]))
+        out = real_k1(packed, lengths, idx)
+        seen["gather_planes"].append(
+            ((packed.clone(), lengths.clone(), idx.clone()), out.clone()))
+        return out
+
+    def k2_logged(*args):
+        shapes["banded_lcs"].append(args[0].shape[1])
+        out = real_k2(*args)
+        seen["banded_lcs"].append(
+            (tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+             out.clone()))
+        return out
+    banded_dp.gather_planes, banded_dp.banded_lcs = k1_logged, k2_logged
+    banded_dp.reset_launches()
+    try:
+        res = fn()
+        torch.cuda.synchronize()
+    finally:
+        banded_dp.gather_planes, banded_dp.banded_lcs = real_k1, real_k2
+    return res, dict(banded_dp.LAUNCHES), shapes, seen
+
+
+def real_launch_errors(banded_dp, seen, tag: str = "B") -> dict:
     """{kernel: max abs error}: the output of each launch phase 6 saw on
     B's path against the plain version on the same inputs (B's own read
     table, pairs, lengths and offsets), exact."""
@@ -275,10 +324,10 @@ def real_launch_errors(banded_dp, seen) -> dict:
             errs[name] = max(errs[name], int(
                 (got.long() - plain(*args).long()).abs().max()))
         if errs[name] != 0:
-            fail(f"configuration B: a launch of {name} differs from its "
-                 f"plain version on the same inputs ({errs[name]})")
+            fail(f"{tag}: a launch of {name} differs from its plain "
+                 f"version on the same inputs ({errs[name]})")
     lcs = [a for a, _ in seen["banded_lcs"]]
-    log("B: every launch exact against its plain version on its own "
+    log(f"{tag}: every launch exact against its plain version on its own "
         f"inputs ({len(seen['gather_planes'])} K1, {len(lcs)} K2); K2 "
         "lengths " + ", ".join(
             f"{int(a[2].min())}-{int(a[2].max())}/"
@@ -530,6 +579,191 @@ def report(tag: str, stats: dict, n_reads: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the mesh layer
+
+RANK_SCRIPT = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from alga_tpu_torch.config import AssemblyConfig
+from alga_tpu_torch.parallel.distributed import assemble_distributed
+from alga_tpu_torch.parallel.mesh import make_mesh
+mesh = make_mesh(sys.argv[5])
+res = assemble_distributed(AssemblyConfig(file1=sys.argv[2], file2=sys.argv[3],
+                                          output=sys.argv[4]), mesh)
+counters = res.stats["counters"]
+print(json.dumps({"rank": mesh.rank, "d": mesh.d,
+                  "phase_seconds": res.stats["phase_seconds"],
+                  "peak_device_mb": res.stats["memory_peaks_mb"]["device_mb"],
+                  "a2a_bytes": {k: v for k, v in counters.items()
+                                if k.startswith("a2a_bytes_")}}),
+      flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def spawn_ranks(n: int, paths, out: Path, device: str = "cuda",
+                timeout: float = 900) -> list[dict]:
+    """assemble_distributed on n ranks, one process each (one card each on
+    CUDA), rendezvous over localhost; each rank's JSON report.  A rank
+    that fails ends the others and the run."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    logs = [open(WORK / f"rank{r}.log", "w+") for r in range(n)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_SCRIPT, str(ROOT), paths[0], paths[1],
+         str(out), device], stdout=logs[r], stderr=subprocess.STDOUT,
+        env=dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                 WORLD_SIZE=str(n), MASTER_ADDR="localhost",
+                 MASTER_PORT=str(port))) for r in range(n)]
+    t_end = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > t_end):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    reports = []
+    for r, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        if p.returncode != 0:
+            fail(f"mesh (d): rank {r} of {n} exited {p.returncode}:\n"
+                 + text[-3000:])
+        reports.append(json.loads(next(
+            ln for ln in reversed(text.splitlines())
+            if ln.startswith('{"rank"'))))
+    return reports
+
+
+def mesh_phase(dev, gargs, g_40k, a_paths, b_paths, fasta_a, n_reads,
+               banded_dp) -> dict:
+    """Phase 9 (see the module docstring); its record for summary.json."""
+    import numpy as np
+    import torch
+    from alga_tpu_torch import config, pipeline
+    from alga_tpu_torch.graph import prefsuf
+    from alga_tpu_torch.io import fastx
+    from alga_tpu_torch.parallel import mesh as mesh_mod
+    from alga_tpu_torch.parallel.distributed import assemble_distributed
+    from alga_tpu_torch.parallel.sharded_gcps import gcps_graph_sharded
+
+    mesh = mesh_mod.make_mesh()
+    log(f"mesh: rank {mesh.rank} of {mesh.d} on {mesh.device}, backend "
+        f"{torch.distributed.get_backend()}")
+    rec = {}
+
+    def measured(fn):
+        """(fn(), seconds, peak device MB over the call)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return (r, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated(dev) / 1e6)
+
+    def same(g, h):
+        return all(np.array_equal(getattr(g, f), getattr(h, f))
+                   for f in ("src", "dst", "offset"))
+
+    # (a) sharded GCPS against the one-device graph, at 40k and 920k slots
+    cfg = config.AssemblyConfig()
+    batch = fastx.load_read_batch(
+        a_paths[0], a_paths[1], add_paired_reads=cfg.add_paired_reads,
+        trim_left=cfg.read_end_trim_left, trim_right=cfg.read_end_trim_right,
+        remove_reads_with_n=cfg.remove_reads_with_n, rna=cfg.rna,
+        str_period=cfg.str_period_threshold)
+    batch.valid &= ~fastx.mark_prefix_reads(batch)
+    batch = pipeline.remap_paired_offsets(batch, paired=True)
+    tcfg = config.autotune(cfg, batch.avg_read_length())
+    batch.valid &= (batch.lengths
+                    >= tcfg.li_kmer_intervals + tcfg.li_kmer_length)
+    a_args = (batch.packed, batch.lengths, len(batch),
+              tcfg.min_overlap_pref_suf, tcfg.read_length_cap,
+              tcfg.rsoe_min_overlap, tcfg.soes, batch.valid, batch.valid)
+    for tag, args, want in (("40k", gargs, g_40k), ("A_920k", a_args, None)):
+        g1, s1, mb1 = measured(lambda: prefsuf.build_gcps_graph(
+            *args, device=dev))
+        want = (want if want is not None else g1).sorted_by_src_offset()
+        g, s, mb = measured(lambda: gcps_graph_sharded(mesh, *args))
+        if not same(g, want) or g.num_edges == 0:
+            fail(f"mesh (a) {tag}: sharded GCPS edges ({g.num_edges}) "
+                 f"differ from the one-device graph's ({want.num_edges})")
+        s2 = measured(lambda: gcps_graph_sharded(mesh, *args))[1]
+        rec[f"gcps_{tag}"] = {"reads": args[2], "edges": g.num_edges,
+                              "sharded_s": s, "sharded_second_s": s2,
+                              "sharded_peak_mb": mb, "one_device_s": s1,
+                              "one_device_peak_mb": mb1}
+        log(f"mesh (a) {tag}: {args[2]} reads, {g.num_edges} edges "
+            "identical field for field; " + json.dumps(rec[f"gcps_{tag}"]))
+    del batch, a_args
+
+    # (b) configuration A through the distributed driver
+    cfg_a = config.AssemblyConfig(file1=a_paths[0], file2=a_paths[1],
+                                  output=str(WORK / "A_dist_contigs.fasta"))
+    res, s, mb = measured(lambda: assemble_distributed(cfg_a, mesh))
+    if (WORK / "A_dist_contigs.fasta").read_bytes() != fasta_a:
+        fail("mesh (b): assemble_distributed's FASTA differs from phase 5's")
+    rec["A_dist"] = {**report("A_dist", res.stats, n_reads), "wall_s": s,
+                     "peak_mb": mb}
+    log("mesh (b): A through assemble_distributed, FASTA byte-identical to "
+        "phase 5's")
+
+    # (c) configuration B through pipeline.assemble(mesh=...)
+    cfg_b = config.AssemblyConfig(
+        file1=b_paths[0], file2=b_paths[1],
+        output=str(WORK / "B_mesh_contigs.fasta"), error_rate=ERR_RATE,
+        use_acler_instead_of_aclcs=False)
+    res, launches, shapes, seen = logged_run(
+        banded_dp, lambda: pipeline.assemble_to_file(cfg_b, mesh=mesh))
+    if ((WORK / "B_mesh_contigs.fasta").read_bytes()
+            != (WORK / "B_contigs.fasta").read_bytes()):
+        fail("mesh (c): B on the mesh wrote other bytes than phase 6")
+    if min(launches.values()) == 0:
+        fail(f"mesh (c): B on the mesh did not launch every kernel: "
+             f"{launches}")
+    errs = real_launch_errors(banded_dp, seen, "B on the mesh")
+    rec["B_mesh"] = {**report("B_mesh", res.stats, n_reads),
+                     "launches": launches, "launch_errors": errs}
+    log(f"mesh (c): B on the mesh, FASTA byte-identical to phase 6's; "
+        f"kernel launches {launches}")
+
+    torch.distributed.destroy_process_group()
+    rec.update(across_cards(a_paths, fasta_a))
+    return rec
+
+
+def across_cards(a_paths, fasta_a) -> dict:
+    """Phase 9d: A through assemble_distributed on min(cards, 4) NCCL
+    ranks, one card each, against phase 5's FASTA; with one card, a line
+    saying so."""
+    import torch
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("mesh (d): one card visible; traffic across cards was not "
+            "exercised")
+        return {}
+    n = min(cards, 4)
+    out = WORK / f"A_dist{n}_contigs.fasta"
+    t0 = time.perf_counter()
+    reports = spawn_ranks(n, a_paths, out)
+    wall = time.perf_counter() - t0
+    if out.read_bytes() != fasta_a:
+        fail(f"mesh (d): rank 0's FASTA on {n} cards differs from phase 5's")
+    log(f"mesh (d): A on {n} NCCL ranks, one card each, FASTA "
+        f"byte-identical to phase 5's; {wall:.1f}s with the ranks' start; "
+        + json.dumps(reports))
+    return {f"A_dist_{n}_cards": reports}
+
 
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]) \
@@ -648,34 +882,8 @@ def main() -> int:
         file1=b_paths[0], file2=b_paths[1],
         output=str(WORK / "B_contigs.fasta"), error_rate=ERR_RATE,
         use_acler_instead_of_aclcs=False)
-    # every launch's shape, to time the kernels at B's own shapes below,
-    # and its inputs and output, to hold them against the plain versions
-    shapes = {"gather_planes": [], "banded_lcs": []}
-    seen = {"gather_planes": [], "banded_lcs": []}
-    real_k1, real_k2 = banded_dp.gather_planes, banded_dp.banded_lcs
-
-    def k1_logged(packed, lengths, idx):
-        shapes["gather_planes"].append((packed.shape[0], idx.shape[1]))
-        out = real_k1(packed, lengths, idx)
-        seen["gather_planes"].append(
-            ((packed.clone(), lengths.clone(), idx.clone()), out.clone()))
-        return out
-
-    def k2_logged(*args):
-        shapes["banded_lcs"].append(args[0].shape[1])
-        out = real_k2(*args)
-        seen["banded_lcs"].append(
-            (tuple(a.clone() if torch.is_tensor(a) else a for a in args),
-             out.clone()))
-        return out
-    banded_dp.gather_planes, banded_dp.banded_lcs = k1_logged, k2_logged
-    banded_dp.reset_launches()
-    try:
-        res = pipeline.assemble_to_file(cfg_b, device=dev)
-        torch.cuda.synchronize()
-    finally:
-        banded_dp.gather_planes, banded_dp.banded_lcs = real_k1, real_k2
-    launches = dict(banded_dp.LAUNCHES)
+    res, launches, shapes, seen = logged_run(
+        banded_dp, lambda: pipeline.assemble_to_file(cfg_b, device=dev))
     res_b = report("B", res.stats, n_file_reads)
     lcs_pairs_b = res.stats["counters"].get("ach_lcs_pairs", 0)
     log(f"B: kernel launches {launches}; pairs through K2: {lcs_pairs_b}; "
@@ -730,6 +938,11 @@ def main() -> int:
         f"({span_ms:.1f} ms span; {kind}, {smi}); top kernels (ms): "
         + "; ".join(f"{name[:60]} {us / 1e3:.2f}" for name, us in top))
 
+    # --- 9 the mesh layer --------------------------------------------------
+    mesh_rec = mesh_phase(dev, gargs, g_dev, a_paths, b_paths, fasta_a,
+                          n_file_reads, banded_dp)
+    launches_mesh = mesh_rec["B_mesh"]["launches"]
+
     (WORK / "summary.json").write_text(json.dumps(
         {"nvidia_smi": smi, "A": res_a, "B": res_b, "A_fused": res_7,
          "A_trace": res_8, "A_busy_share": share, "A_span_ms": span_ms,
@@ -738,7 +951,8 @@ def main() -> int:
          "B_kmer_identity": ident, "build": _cuda.BUILD_INFO.get("seconds"),
          "B_launch_shapes": shapes, "B_launch_errors": real_err,
          "kernels_main": k_main, "kernels_B": k_b,
-         "graph_40k": {"edges": g_dev.num_edges, "seconds": secs}},
+         "graph_40k": {"edges": g_dev.num_edges, "seconds": secs},
+         "mesh": mesh_rec},
         indent=1))
 
     kernels = []
@@ -748,9 +962,12 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
             "replaces": f"alga_tpu/ops/pallas/{replaces}",
-            "launches": launches[name],
+            "launches": launches[name] + launches_mesh[name],
+            "launches_by_path": {"B": launches[name],
+                                 "B_mesh": launches_mesh[name]},
             "max_abs_err": max(main["max_abs_err"], at_b["max_abs_err"],
-                               real_err[name]),
+                               real_err[name],
+                               mesh_rec["B_mesh"]["launch_errors"][name]),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "shape")},
             "at_B_shape": {k: at_b[k] for k in (
