@@ -10,7 +10,9 @@ Layer map (same layers as alga_tpu, see its __init__):
   config.py         — AssemblyConfig and the reference's auto-tuning
   device.py         — device selection (CUDA unless "cpu" is asked for)
   native.py         — ctypes binding of the shared C++ host engine
-                      (native/libalga_host.so at the repository root)
+                      (native/libalga_host.so at the repository root);
+                      without it every pass takes its numpy/Python twin,
+                      as in alga_tpu, with the same output
   core/             — 2-bit packing, SeqBatch
   io/fastx.py       — read ingest, preprocessing, prefix/duplicate marking
   io/multihost.py   — sharded ingest: each rank reads its own records

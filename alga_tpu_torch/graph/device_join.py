@@ -31,8 +31,6 @@ The edges, and their (src, dst) row order, equal the JAX module's.
 
 from __future__ import annotations
 
-from collections import namedtuple
-
 import numpy as np
 import torch
 
@@ -43,9 +41,6 @@ from alga_tpu_torch.ops import hashes
 from alga_tpu_torch.ops.bitops import M32, _low_mask, _pad_words
 from alga_tpu_torch.store import words_as_int32
 from alga_tpu_torch.utils import timers
-
-# the exact overlaps, as native.gcps_from_matches reads them
-Matches = namedtuple("Matches", "src dst ell")
 
 _VERIFY_CHUNK = 1 << 22  # candidate compares per row-gather batch
 
@@ -308,10 +303,11 @@ def gcps_graph_device(packed, lengths, n: int, ell_min: int, cap: int,
 
 def find_exact_overlaps_device(packed, lengths, ell_min: int, cap: int,
                                align_from=None, align_to=None, *,
-                               device=None) -> Matches:
-    """The exact overlaps (src, dst, ell) as int64 numpy arrays: the match
-    list of stages 1-2, the same matches in the same order as
+                               device=None):
+    """prefsuf.OverlapMatches (src, dst, ell int64 numpy arrays): the
+    match list of stages 1-2, the same matches in the same order as
     alga_tpu.graph.device_join.find_exact_overlaps_device."""
+    from alga_tpu_torch.graph.prefsuf import OverlapMatches
     n = len(lengths)
     packed, lengths, af, at = _inputs(packed, lengths, n, align_from,
                                       align_to, device)
@@ -319,10 +315,10 @@ def find_exact_overlaps_device(packed, lengths, ell_min: int, cap: int,
     k = int(ell_min)
     if n == 0 or max_len < k:
         z = np.zeros(0, dtype=np.int64)
-        return Matches(z, z.copy(), z.copy())
+        return OverlapMatches(z, z.copy(), z.copy())
     wB, wp, lo, counts = _keys_and_counts(packed, lengths, af, at, k,
                                           max_len - k + 1, int(cap))
     B, C, E, _ = _expand_verify(_pad_words(packed), lengths, wB, wp, lo,
                                 counts, packing.words_for(
                                     min(max_len, cap)))
-    return Matches(*(x.cpu().numpy() for x in (B, C, E)))
+    return OverlapMatches(*(x.cpu().numpy() for x in (B, C, E)))

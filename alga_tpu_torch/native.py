@@ -147,6 +147,10 @@ def get_lib():
         u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, u8p, i64p,
         ctypes.c_int64, ctypes.c_int64, i64p, ctypes.c_int64]
     u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+    lib.alga_join_ranges.restype = None
+    lib.alga_join_ranges.argtypes = [
+        u64p, ctypes.c_int64, u64p, ctypes.c_int64, i64p, i64p,
+        ctypes.c_int32]
     lib.alga_window_hash.restype = None
     lib.alga_window_hash.argtypes = [
         u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
@@ -495,6 +499,22 @@ def gcps_join_verify(keys: np.ndarray, lengths: np.ndarray, af: np.ndarray,
             bump("gcps_candidates", int(cand[0]))
             return src[:m].copy(), dst[:m].copy(), ell[:m].copy()
         out_cap = m
+
+
+def join_ranges(table_keys_sorted: np.ndarray, probe_keys: np.ndarray,
+                threads: int = 0):
+    """(lo int64[M], cnt int64[M]): equal-key range of each probe key in
+    the SORTED table — hash-join twin of the two np.searchsorted calls
+    (left/right) in prefsuf.find_exact_overlaps.  The port reaches it
+    only from find_exact_overlaps, when the engine is loaded (its own
+    GCPS host route takes the fused gcps_join_verify_packed then)."""
+    lib = get_lib()
+    t = np.ascontiguousarray(table_keys_sorted, dtype=np.uint64)
+    p = np.ascontiguousarray(probe_keys, dtype=np.uint64)
+    lo = np.empty(max(len(p), 1), dtype=np.int64)
+    cnt = np.empty(max(len(p), 1), dtype=np.int64)
+    lib.alga_join_ranges(t, len(t), p, len(p), lo, cnt, threads)
+    return lo[: len(p)], cnt[: len(p)]
 
 
 def gcps_from_matches(n, matches, packed, lengths, rsoe: int, soes: int):

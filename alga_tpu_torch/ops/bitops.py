@@ -4,11 +4,19 @@ Layout: base i of a read sits at bits (2*(i%16), +1) of word i//16.  The
 words arrive as int32 (the uint32 bits) and are widened to int64 masked
 to 32 bits, so that right shifts are logical.  A substring view of read
 A starting at base s is a funnel shift of two adjacent words.
+`substr_equal_auto` takes numpy for small batches and `substr_equal` on
+the device for large ones (alga_tpu/ops/bitops.py:152-171), without the
+JAX module's power-of-two padding, which served XLA's executable cache.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from alga_tpu_torch import device as device_mod
+from alga_tpu_torch.core import packing
+from alga_tpu_torch.store import words_as_int32
 
 M32 = 0xFFFFFFFF
 
@@ -87,6 +95,45 @@ def np_mismatch_count(codes, a_id, a_start, b_id, match_len) -> int:
     a = codes[a_id, a_start: a_start + match_len]
     b = codes[b_id, :match_len]
     return int((a != b).sum())
+
+
+def np_substr_equal_batch(codes, a_ids, a_starts, b_ids, match_lens):
+    """bool[M]: substr_equal over a base-code matrix uint8[N, L], in
+    numpy."""
+    a_ids = np.asarray(a_ids, dtype=np.int64)
+    b_ids = np.asarray(b_ids, dtype=np.int64)
+    a_starts = np.asarray(a_starts, dtype=np.int64)
+    match_lens = np.asarray(match_lens, dtype=np.int64)
+    if len(a_ids) == 0:
+        return np.zeros(0, dtype=bool)
+    lmax = max(1, int(match_lens.max()))
+    lpad = codes.shape[1]
+    cols = np.arange(lmax, dtype=np.int64)[None, :]
+    av = codes[a_ids[:, None], np.minimum(a_starts[:, None] + cols, lpad - 1)]
+    bv = codes[b_ids[:, None], np.minimum(cols, lpad - 1)]
+    return ((av == bv) | (cols >= match_lens[:, None])).all(axis=1)
+
+
+def substr_equal_auto(packed, codes, a_ids, a_starts, b_ids, match_lens,
+                      num_words: int, min_device_batch: int = 200_000, *,
+                      device=None) -> np.ndarray:
+    """bool[M]: the batched packed verify of the numpy read store
+    (`packed` uint32[N, W]; `codes` uint8[N, L] or None) — numpy below
+    `min_device_batch` queries, `substr_equal` on `device` at or above."""
+    m = len(a_ids)
+    if m == 0:
+        return np.zeros(0, dtype=bool)
+    if m < min_device_batch:
+        if codes is None:
+            codes = packing.packed_to_codes(packed)
+        return np_substr_equal_batch(codes, a_ids, a_starts, b_ids,
+                                     match_lens)
+    dev = device_mod.resolve(device)
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.asarray(a, dtype=np.int64)).to(dev)
+    return substr_equal(torch.from_numpy(words_as_int32(packed)).to(dev),
+                        t(a_ids), t(a_starts), t(b_ids), t(match_lens),
+                        num_words).cpu().numpy()
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

@@ -158,7 +158,9 @@ def build_graph_phase(batch, cfg: TunedConfig, timers: PhaseTimer, *,
 class SupplementAdj:
     """Adjacency view for the PKB replay: the existing graph's sorted
     (src, dst) keys plus an overlay of edges added or lowered during the
-    supplement (the native replay reads `_keys`, `_offs` and `overlay`)."""
+    supplement.  The native replay reads `_keys`, `_offs` and `overlay`;
+    the Python replay calls `get_offset` and `add_min` (O(log E) a
+    lookup, no dict of the whole graph)."""
 
     def __init__(self, g):
         self.g = g
@@ -168,6 +170,23 @@ class SupplementAdj:
         self._offs = g.offset[order]
         self.n = g.n
         self.overlay: dict[int, int] = {}
+
+    def get_offset(self, a, b):
+        """The least offset of edge a->b, base or overlay; None if absent."""
+        k = a * self.n + b
+        cur = self.overlay.get(k)
+        p = int(np.searchsorted(self._keys, k))
+        if p < len(self._keys) and self._keys[p] == k:
+            base = int(self._offs[p])
+            return base if cur is None or base < cur else cur
+        return cur
+
+    def add_min(self, a, b, offset):
+        """Put a->b at `offset` in the overlay unless it holds a lower one."""
+        k = a * self.n + b
+        cur = self.overlay.get(k)
+        if cur is None or offset < cur:
+            self.overlay[k] = offset
 
     def to_graph(self):
         """Original edges + overlay edges, min-offset deduped."""
@@ -324,6 +343,11 @@ def assemble(cfg: AssemblyConfig, file1_seqs: list[str] | None = None,
                     g, batch, tcfg.max_offset_parallel_paths,
                     tcfg.max_offset_dangling_branches, threads=tcfg.threads)
             else:
+                if g.n > 100_000:
+                    _log("WARNING: native engine unavailable — the Python "
+                         "twin simplifier walks nodes in Python loops and "
+                         f"will be very slow at {g.n} nodes (build "
+                         "native/libalga_host.so, or run on a mesh)")
                 g = simplify.simplify_graph_old(
                     g, batch, tcfg.max_offset_parallel_paths,
                     tcfg.max_offset_dangling_branches, log=_log,

@@ -1,11 +1,16 @@
-"""Graph serialization in the reference's binary graph format (ref
-Graph::serializeGraph / deserializeGraph,
-src/DataStructures/Graph.cpp:220-297) — interoperable with the
-reference's --serialize/--deserialize_graph workflow.
+"""Checkpoint / resume: graph serialization.
 
-A copy of the graph-format half of alga_tpu/utils/serialize.py, kept in
-step with it: the port imports nothing of alga_tpu, whose package
-imports jax.  The npz phase checkpoints stay in alga_tpu only.
+Two formats:
+  * the reference's binary graph format (ref Graph::serializeGraph /
+    deserializeGraph, src/DataStructures/Graph.cpp:220-297) —
+    interoperable with the reference's --serialize/--deserialize_graph
+    workflow;
+  * npz phase checkpoints (packed reads + edge arrays) for a resume at a
+    phase boundary, in the same layout as alga_tpu's, so that a file
+    written by either package loads in the other.
+
+A copy of alga_tpu/utils/serialize.py, kept in step with it: the port
+imports nothing of alga_tpu, whose package imports jax.
 """
 
 from __future__ import annotations
@@ -96,3 +101,35 @@ def read_reference_graph(path: str) -> OverlapGraph:
         wts = np.zeros(0, dtype=np.int32)
     return OverlapGraph(n, src, np.asarray(dst, dtype=np.int32),
                         np.asarray(wts, dtype=np.int32))
+
+
+def save_checkpoint(path: str, *, batch=None, graph: OverlapGraph | None = None,
+                    meta: dict | None = None) -> None:
+    """npz phase checkpoint: packed reads and/or edge arrays."""
+    payload = {}
+    if batch is not None:
+        payload.update(
+            packed=batch.packed, lengths=batch.lengths, valid=batch.valid,
+            paired_offset=batch.paired_offset)
+    if graph is not None:
+        payload.update(g_n=np.int64(graph.n), g_src=graph.src,
+                       g_dst=graph.dst, g_off=graph.offset)
+    if meta:
+        for k, v in meta.items():
+            payload[f"meta_{k}"] = np.asarray(v)
+    np.savez_compressed(path, **payload)
+
+
+def load_checkpoint(path: str):
+    """Returns (batch | None, graph | None, meta dict)."""
+    from alga_tpu_torch.core.seqbatch import SeqBatch
+    z = np.load(path)
+    batch = None
+    if "packed" in z:
+        batch = SeqBatch(z["packed"], z["lengths"], z["valid"],
+                         z["paired_offset"])
+    graph = None
+    if "g_n" in z:
+        graph = OverlapGraph(int(z["g_n"]), z["g_src"], z["g_dst"], z["g_off"])
+    meta = {k[5:]: z[k] for k in z.files if k.startswith("meta_")}
+    return batch, graph, meta

@@ -60,9 +60,23 @@ Phases; any failure ends the run with a non-zero exit code:
              cards, (b) again on min(cards, 4) NCCL ranks, one per card;
              with one card, a line saying that traffic across cards was
              not exercised.
+ 10 no engine configurations A and B without the native host engine
+             (`alga_tpu_torch.native.available` patched to return False:
+             the numpy/Python twins of the engine's passes, the device
+             GCPS and, in B, both kernels) on the bench's 40k-read recipe
+             (200 kb genome, 20x of 100 bp, seed 123; B with the 2%
+             substitutions) through pipeline.assemble_to_file, each beside
+             the same run with the engine loaded: the same FASTA bytes;
+             A's contigs exact genome substrings, B's sharing >= 90% of
+             sampled 31-mers with the genome; in B both kernels launched
+             and every launch equal to its plain version on its own
+             inputs; phase seconds of all four runs.  The 920k-slot runs
+             are cut to 40k reads here because the engine-free route runs
+             the simplifier, contraction, walk and PKB replay in Python
+             loops.
 
-The kernels' launch counts are those of phases 6 and 9c together (each
-counted from 0 just before its run).  The last three lines of standard
+The kernels' launch counts are those of phases 6, 9c and 10's two B runs
+together (each counted from 0 just before its run).  The last three lines of standard
 output are the card's nvidia-smi line, the kernels' JSON record and the
 result line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Datasets and logs go to build/chip_smoke/ in the checkout.
@@ -71,6 +85,7 @@ Datasets and logs go to build/chip_smoke/ in the checkout.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -365,13 +380,7 @@ def scale_datasets():
         mates[0, i] = np.frombuffer(a, dtype=np.uint8)
         mates[1, i] = np.frombuffer(b, dtype=np.uint8)
 
-    erng = np.random.default_rng(ERR_SEED)
-    noisy = mates.copy()
-    err = erng.random(noisy.shape) < ERR_RATE
-    repl = bases[erng.integers(0, 4, int(err.sum()))]
-    same = repl == noisy[err]
-    repl[same] = bases[(np.searchsorted(bases, repl[same]) + 1) % 4]
-    noisy[err] = repl
+    noisy = substituted(mates)
 
     WORK.mkdir(parents=True, exist_ok=True)
     paths = {}
@@ -388,8 +397,25 @@ def scale_datasets():
     return genome, paths["A"], paths["B"], 2 * n_frags
 
 
-def bench_40k_reads():
-    """bench.py _simulate: 200 kb genome, 20x of 100 bp reads, seed 123."""
+def substituted(mat):
+    """A copy of the base matrix `mat` (uint8 ASCII) with bench.py's
+    error-path substitutions (bench.py:336-343): each base is replaced
+    with probability 2% by a different base (seed ERR_SEED)."""
+    import numpy as np
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    erng = np.random.default_rng(ERR_SEED)
+    noisy = mat.copy()
+    err = erng.random(noisy.shape) < ERR_RATE
+    repl = bases[erng.integers(0, 4, int(err.sum()))]
+    same = repl == noisy[err]
+    repl[same] = bases[(np.searchsorted(bases, repl[same]) + 1) % 4]
+    noisy[err] = repl
+    return noisy
+
+
+def bench_40k():
+    """(genome, reads) of bench.py _simulate: 200 kb genome, 20x of 100 bp
+    reads, seed 123."""
     import numpy as np
     comp = str.maketrans("ACGT", "TGCA")
     rng = np.random.default_rng(123)
@@ -402,7 +428,7 @@ def bench_40k_reads():
         if rng.random() < 0.5:
             r = r.translate(comp)[::-1]
         reads.append(r)
-    return reads
+    return genome, reads
 
 
 class GenomeIndex:
@@ -765,6 +791,78 @@ def across_cards(a_paths, fasta_a) -> dict:
     return {f"A_dist_{n}_cards": reports}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: without the native host engine
+
+def nonative_phase(dev, banded_dp) -> dict:
+    """Phase 10 (see the module docstring); its record for summary.json."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from alga_tpu_torch import config, native, pipeline
+
+    genome, reads = bench_40k()
+    mat = np.frombuffer("".join(reads).encode(), dtype=np.uint8)
+    noisy = [r.tobytes().decode()
+             for r in substituted(mat.reshape(len(reads), -1))]
+    index = GenomeIndex(genome.encode())
+    rec = {}
+    for name, seqs, kw in (
+            ("A", reads, {}),
+            ("B", noisy, dict(error_rate=ERR_RATE,
+                              use_acler_instead_of_aclcs=False))):
+        fasta = {}
+        for engine in ("engine", "no_engine"):
+            tag = f"{name}_40k_{engine}"
+            out = WORK / f"{tag}.fasta"
+            cfg = config.AssemblyConfig(output=str(out), **kw)
+            patch = (mock.patch.object(native, "available", lambda: False)
+                     if engine == "no_engine" else contextlib.nullcontext())
+            with patch:
+                res, launches, _shapes, seen = logged_run(
+                    banded_dp, lambda: pipeline.assemble_to_file(
+                        cfg, file1_seqs=seqs, device=dev))
+            ran_native = "contract_walk_native" in res.stats["phase_seconds"]
+            if ran_native != (engine == "engine"):
+                fail(f"no engine: {tag} ran the native contraction: "
+                     f"{ran_native}")
+            rec[tag] = report(tag, res.stats, len(seqs))
+            fasta[engine] = out.read_bytes()
+            if name == "B":
+                if min(launches.values()) == 0:
+                    fail(f"no engine: {tag} did not launch every kernel: "
+                         f"{launches}")
+                rec[tag].update(
+                    launches=launches,
+                    lcs_pairs=res.stats["counters"].get("ach_lcs_pairs", 0),
+                    launch_errors=real_launch_errors(banded_dp, seen, tag))
+                log(f"{tag}: kernel launches {launches}, "
+                    f"{rec[tag]['lcs_pairs']} pairs through K2")
+            del seen
+        if fasta["engine"] != fasta["no_engine"]:
+            fail(f"no engine: {name} wrote other FASTA bytes without the "
+                 "engine than with it")
+        contigs = [ln for ln in fasta["engine"].decode().splitlines()
+                   if not ln.startswith(">") and ln != "CCCC"]
+        if not contigs:
+            fail(f"no engine: {name} at 40k reads wrote no contig")
+        if name == "A" and not all(index.contains(c) for c in contigs):
+            fail("no engine: an A contig is not a substring of the genome")
+        share = index.kmer_share(contigs)
+        if share < 0.9:
+            fail(f"no engine: {name}'s contigs share {share:.3f} of their "
+                 "31-mers with the genome")
+        rec[f"{name}_kmer_share"] = share
+        log(f"no engine: {name} at 40k reads, {len(contigs)} contigs, FASTA "
+            "byte-identical with and without the engine; 31-mer share "
+            f"{share:.4f}; seconds with / without "
+            f"{rec[name + '_40k_engine']['assembly_s']:.3f} / "
+            f"{rec[name + '_40k_no_engine']['assembly_s']:.3f}")
+    torch.cuda.synchronize()
+    return rec
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]) \
         .parse_args()
@@ -806,7 +904,7 @@ def main() -> int:
     # --- 4 device GCPS against the native engine -------------------------
     cfg = config.AssemblyConfig()
     batch = fastx.build_read_batch(
-        bench_40k_reads(), None, trim_left=cfg.read_end_trim_left,
+        bench_40k()[1], None, trim_left=cfg.read_end_trim_left,
         trim_right=cfg.read_end_trim_right,
         remove_reads_with_n=cfg.remove_reads_with_n, rna=cfg.rna,
         str_period=cfg.str_period_threshold)
@@ -943,6 +1041,12 @@ def main() -> int:
                           n_file_reads, banded_dp)
     launches_mesh = mesh_rec["B_mesh"]["launches"]
 
+    # --- 10 configurations A and B without the native host engine --------
+    nonative = nonative_phase(dev, banded_dp)
+    by_path = {"B": launches, "B_mesh": launches_mesh,
+               **{tag: nonative[tag]["launches"]
+                  for tag in ("B_40k_engine", "B_40k_no_engine")}}
+
     (WORK / "summary.json").write_text(json.dumps(
         {"nvidia_smi": smi, "A": res_a, "B": res_b, "A_fused": res_7,
          "A_trace": res_8, "A_busy_share": share, "A_span_ms": span_ms,
@@ -952,7 +1056,7 @@ def main() -> int:
          "B_launch_shapes": shapes, "B_launch_errors": real_err,
          "kernels_main": k_main, "kernels_B": k_b,
          "graph_40k": {"edges": g_dev.num_edges, "seconds": secs},
-         "mesh": mesh_rec},
+         "mesh": mesh_rec, "no_engine": nonative},
         indent=1))
 
     kernels = []
@@ -962,12 +1066,13 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
             "replaces": f"alga_tpu/ops/pallas/{replaces}",
-            "launches": launches[name] + launches_mesh[name],
-            "launches_by_path": {"B": launches[name],
-                                 "B_mesh": launches_mesh[name]},
+            "launches": sum(n[name] for n in by_path.values()),
+            "launches_by_path": {p: n[name] for p, n in by_path.items()},
             "max_abs_err": max(main["max_abs_err"], at_b["max_abs_err"],
                                real_err[name],
-                               mesh_rec["B_mesh"]["launch_errors"][name]),
+                               mesh_rec["B_mesh"]["launch_errors"][name],
+                               *(nonative[f"B_40k_{t}"]["launch_errors"][name]
+                                 for t in ("engine", "no_engine"))),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms", "shape")},
             "at_B_shape": {k: at_b[k] for k in (

@@ -1,7 +1,8 @@
 """alga_tpu_torch runs without jax and without alga_tpu: it imports in a
 process where neither can be imported and assembles there on the CPU, in
 configuration A (the default run) and configuration B (error_rate=0.02,
-ACLCS fallback on), also with the fused GCPS path and the device consensus
+ACLCS fallback on), with and without the native host engine (the same
+contigs), also with the fused GCPS path and the device consensus
 forced (ALGA_GCPS_DEVICE=small, ALGA_DEVICE_CONSENSUS=1), and through the
 distributed driver on a one-rank gloo mesh; without CUDA it refuses to
 pick a device on its own, for a mesh too, and a CUDA mesh refuses more
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 torch.set_num_threads(2)
 import alga_tpu_torch
+import alga_tpu_torch.native
 from alga_tpu_torch.config import AssemblyConfig
 from alga_tpu_torch.pipeline import assemble
 from tests.simulate import random_genome, simulate_single
@@ -49,6 +51,16 @@ for name, kw, err in (
     assert res.contigs, f"{{name}}: no contigs"
     if name == "B":
         assert res.stats["counters"]["ach_lcs_pairs"] > 0
+    # the same run without the native host engine
+    real_available = alga_tpu_torch.native.available
+    alga_tpu_torch.native.available = lambda: False
+    try:
+        bare = assemble(AssemblyConfig(**kw), file1_seqs=reads, device="cpu")
+    finally:
+        alga_tpu_torch.native.available = real_available
+    assert "contract_walk_native" not in bare.stats["phase_seconds"]
+    assert ([(c.cid, c.seq) for c in bare.contigs]
+            == [(c.cid, c.seq) for c in res.contigs]), name
 from alga_tpu_torch.parallel.distributed import assemble_distributed
 from alga_tpu_torch.parallel.mesh import make_mesh
 path = os.path.join({tmp!r}, "reads.fastq")
@@ -110,10 +122,29 @@ def test_cuda_mesh_refuses_more_ranks_than_cards(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
+# the engine-free functions and the files that define them
+ENGINE_FREE = {
+    "alga_tpu_torch/graph/prefsuf.py": (
+        "OverlapMatches", "find_exact_overlaps", "_regime1_ring_survivors",
+        "gcps_from_matches"),
+    "alga_tpu_torch/graph/supplement.py": (
+        "li_kmers", "_canonical_runs", "_gen_candidate_pairs",
+        "_replay_runs", "_replay_runs_auto"),
+    "alga_tpu_torch/ops/hashes.py": (
+        "np_window_kmer_keys", "combine_keys", "window_keys"),
+    "alga_tpu_torch/ops/bitops.py": (
+        "np_substr_equal_batch", "substr_equal_auto"),
+    "alga_tpu_torch/native.py": ("join_ranges",),
+    "alga_tpu_torch/pipeline.py": ("SupplementAdj",),
+    "alga_tpu_torch/utils/serialize.py": ("save_checkpoint",
+                                          "load_checkpoint"),
+}
+
+
 def test_no_jax_import_in_the_port():
     """Neither jax nor alga_tpu (the name alone, or a module of it) is
-    imported by a file of the port, its mesh layer included, or by
-    chip_smoke.py."""
+    imported by a file of the port, its mesh layer and its engine-free
+    functions included, or by chip_smoke.py."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|alga_tpu)(?![\w])", re.M)
     files = [*(ROOT / "alga_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
     names = {str(p.relative_to(ROOT)) for p in files}
@@ -121,6 +152,11 @@ def test_no_jax_import_in_the_port():
                 "sharded_simplify", "sharded_contract", "distributed"):
         assert f"alga_tpu_torch/parallel/{mod}.py" in names
     assert "alga_tpu_torch/io/multihost.py" in names
+    for path, funcs in ENGINE_FREE.items():
+        assert path in names
+        text = (ROOT / path).read_text()
+        for fn in funcs:
+            assert re.search(rf"^(def|class) {fn}\b", text, re.M), (path, fn)
     bad = [str(p) for p in files if pat.search(p.read_text())]
     assert not bad, f"jax or alga_tpu imported in {bad}"
     assert pat.search("from alga_tpu.core import packing")
