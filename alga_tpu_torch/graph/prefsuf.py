@@ -14,10 +14,15 @@ followed by the numpy post-match build `gcps_from_matches`
 ALGA_GCPS_DEVICE=small|wide|off forces the fused path, the blocked path
 or the host route, as it does in the JAX package; `small` falls through
 with a notice when the input breaks the fused path's limits.  Without
-it, a CUDA device takes the fused path where the JAX package's
-accelerator rule does (alga_tpu/graph/prefsuf.py:276-283,298-299); other
-short-read graphs, and every one on the CPU, take the blocked path, and
-sequences longer than cap + cap/4 stay on the host.
+it, a CUDA device follows the JAX package's accelerator rule
+(alga_tpu/graph/prefsuf.py:275-309): graphs of 2^18 windows or more take
+the fused path under its limits and the blocked path above them, smaller
+ones the host route.  On the CPU every short-read graph takes the
+blocked path.  Sequences longer than cap + cap/4 stay on the host.
+
+The native fused join packs each prefix-key run's length into 24 bits
+(native/alga_host.cpp:1857,2441); a run of NATIVE_RUN_LIMIT rows or more
+takes `find_exact_overlaps` instead, whose join keeps 64-bit counts.
 
 The graph is order-free: ring survivors are the last `soes` matches per
 source below `rsoe`, the latest instance of a pair wins, and a pair is
@@ -41,6 +46,9 @@ from alga_tpu_torch.graph.device_scale import gcps_graph_device_scale
 from alga_tpu_torch.graph.overlap_graph import OverlapGraph
 from alga_tpu_torch.ops import bitops, hashes
 from alga_tpu_torch.utils import timers
+
+# the native fused join's table holds a key run's length in 24 bits
+NATIVE_RUN_LIMIT = 1 << 24
 
 
 class OverlapMatches(NamedTuple):
@@ -257,14 +265,23 @@ def gcps_from_matches(n: int, m: OverlapMatches, packed, lengths,
                         p_off[keep].astype(np.int32))
 
 
+def _longest_run(sorted_keys: np.ndarray) -> int:
+    """Length of the longest run of equal values in `sorted_keys`."""
+    if len(sorted_keys) == 0:
+        return 0
+    starts = np.flatnonzero(np.r_[True, sorted_keys[1:] != sorted_keys[:-1]])
+    return int(np.diff(np.r_[starts, len(sorted_keys)]).max())
+
+
 def host_gcps_graph(packed, lengths, n: int, ell_min: int, cap: int,
                     rsoe: int, soes: int = 3, align_from=None,
                     align_to=None, *, device=None):
     """GCPS graph on the host route: the native engine's prefix keys,
     fused join + verify straight from the packed store and post-match
-    stages when it is loaded; else `find_exact_overlaps` and
-    `gcps_from_matches`, their hashes and verifies on `device` for large
-    batches."""
+    stages when it is loaded (`find_exact_overlaps` in place of the fused
+    join when a prefix-key run reaches NATIVE_RUN_LIMIT rows); else
+    `find_exact_overlaps` and `gcps_from_matches`, their hashes and
+    verifies on `device` for large batches."""
     lengths = np.asarray(lengths, dtype=np.int64)
     k = int(ell_min)
     max_len = int(lengths.max(initial=0))
@@ -285,6 +302,10 @@ def host_gcps_graph(packed, lengths, n: int, ell_min: int, cap: int,
     pref_ids = np.flatnonzero((lengths >= k) & at)
     pk = native.prefix_keys(packed, pref_ids, k, hashes.A1, hashes.A2)
     order = np.argsort(pk, kind="stable")
+    if _longest_run(pk[order]) >= NATIVE_RUN_LIMIT:
+        m = find_exact_overlaps(packed, lengths, ell_min, cap, af, at,
+                                device=device)
+        return native.gcps_from_matches(n, m, packed, lengths, rsoe, soes)
     src, dst, ell = native.gcps_join_verify_packed(
         n, max_len - k + 1, lengths, af & (lengths >= k), k, cap,
         hashes.A1, hashes.A2, pk[order], pref_ids[order].astype(np.int32),
@@ -314,12 +335,15 @@ def build_gcps_graph(packed, lengths, n: int, ell_min: int, cap: int,
         force = ""
     args = (packed, lengths, n, ell_min, cap, rsoe, soes, align_from,
             align_to)
-    if force == "small" or (
-            not force and small_safe and n < (1 << 19)
-            and len(lengths_np) * n_windows >= 1 << 18
-            and device_mod.resolve(device).type == "cuda"):
+    on_cuda = device_mod.resolve(device).type == "cuda"
+    # on CUDA a device path needs alga_tpu's accelerator size term; the
+    # CPU keeps the blocked path for every short-read graph
+    big_enough = len(lengths_np) * n_windows >= 1 << 18
+    if force == "small" or (not force and on_cuda and big_enough
+                            and small_safe and n < (1 << 19)):
         return gcps_graph_device(*args, device=device)
-    if force == "wide" or (not force and max_len <= cap + (cap >> 2)):
+    if force == "wide" or (not force and max_len <= cap + (cap >> 2)
+                           and (big_enough or not on_cuda)):
         return gcps_graph_device_scale(*args, device=device)
     packed = _numpy(packed)
     if packed.dtype == np.int32:

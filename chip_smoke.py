@@ -28,17 +28,27 @@ Phases; any failure ends the run with a non-zero exit code:
              device path (ALGA_GCPS_DEVICE=wide) and the native host
              engine: the same edges, field for field; first-call and
              second-call seconds of each.
-  5 A        configuration A (the default CLI run, error_rate=0) at E. coli
-             scale (4.6 Mb genome, 2x100 bp, 10x: 920k read slots) through
-             `python -m alga_tpu_torch.cli`; every contig must be an exact
-             substring of the genome or of its reverse complement.
+  5 A        the four FASTQ files of scale_datasets() must have the
+             recipe's sha256 (DATASET_SHA256; else "dataset differs from
+             the recipe's").  Configuration A (the default CLI run,
+             error_rate=0) at E. coli scale (4.6 Mb genome, 2x100 bp, 10x:
+             920k read slots) through `python -m alga_tpu_torch.cli`: the
+             FASTA's sha256 must equal alga_tpu's (REFERENCE_SHA256), and
+             every contig must be an exact substring of the genome or of
+             its reverse complement.
   6 B        configuration B (2% substitutions, error_rate=0.02, ACLCS
              fallback on) at the same scale through
              pipeline.assemble_to_file; both kernels must have launched on
              this main path, K1 once per LCS batch; the output of every
              launch on the path must equal the plain version's on the
-             same inputs; the contigs must share >= 90% of their sampled
-             31-mers with the genome.
+             same inputs; the FASTA's sha256 must equal alga_tpu's; the
+             contigs must share >= 90% of their sampled 31-mers with the
+             genome.
+  6c C       configuration C, the CLI's own error path (B's reads through
+             `python -m alga_tpu_torch.cli --error-rate 0.02`: ACLER, no
+             LCS fallback): the FASTA's sha256 must equal alga_tpu's, and
+             no pair may reach the LCS fallback (ach_lcs_pairs absent or
+             0); reads/s, phase seconds, peak device memory, ACH counters.
   7 A fused  configuration A through the CLI with ALGA_GCPS_DEVICE=small
              and ALGA_DEVICE_CONSENSUS=1 (the fused GCPS path at 920k slots
              and the device consensus): FASTA byte-identical to phase 5's;
@@ -55,8 +65,13 @@ Phases; any failure ends the run with a non-zero exit code:
              assemble_distributed, FASTA byte-identical to phase 5's;
              (c) B through pipeline.assemble(mesh=...), FASTA
              byte-identical to phase 6's, both kernels launched and every
-             launch equal to its plain version; seconds and peak device
-             memory of each, reads/s of (b) and (c).  (d) With two or more
+             launch equal to its plain version; (e) C through
+             pipeline.assemble(mesh=...), whose pairs go through
+             ach_batch_mesh and the device ACLER (acler_batch) on the
+             card: FASTA byte-identical to phase 6c's and alga_tpu's,
+             ach_low_error_approved > 0 (only the device ACLER bumps it),
+             no kernel launch; seconds and peak device memory of each,
+             reads/s of (b), (c) and (e).  (d) With two or more
              cards, (b) again on min(cards, 4) NCCL ranks, one per card;
              with one card, a line saying that traffic across cards was
              not exercised.
@@ -66,7 +81,9 @@ Phases; any failure ends the run with a non-zero exit code:
              GCPS and, in B, both kernels) on the bench's 40k-read recipe
              (200 kb genome, 20x of 100 bp, seed 123; B with the 2%
              substitutions) through pipeline.assemble_to_file, each beside
-             the same run with the engine loaded: the same FASTA bytes;
+             the same run with the engine loaded: the read lists' sha256
+             equal to the recipe's, the same FASTA bytes, equal to
+             alga_tpu's (A_40k, B_40k in REFERENCE_SHA256);
              A's contigs exact genome substrings, B's sharing >= 90% of
              sampled 31-mers with the genome; in B both kernels launched
              and every launch equal to its plain version on its own
@@ -75,6 +92,8 @@ Phases; any failure ends the run with a non-zero exit code:
              the simplifier, contraction, walk and PKB replay in Python
              loops.
 
+Phases 7, 8 and 9 compare their FASTA with phases 5, 6 and 6c, so every
+assembly of the run is held byte for byte against alga_tpu's output.
 The kernels' launch counts are those of phases 6, 9c and 10's two B runs
 together (each counted from 0 just before its run).  The last three lines of standard
 output are the card's nvidia-smi line, the kernels' JSON record and the
@@ -107,6 +126,42 @@ ERR_RATE = 0.02
 
 KERNEL_SOURCES = {"gather_planes": "alga_tpu_torch/csrc/banded_dp.cu",
                   "banded_lcs": "alga_tpu_torch/csrc/banded_lcs.cu"}
+
+# the configurations beside A (the default run): B runs the ACLCS fallback
+# (both kernels), C is the CLI's `--error-rate 0.02` (ACLER only)
+B_KW = {"error_rate": ERR_RATE, "use_acler_instead_of_aclcs": False}
+C_CLI_ARGS = ("--error-rate", str(ERR_RATE))
+
+# sha256 of alga_tpu's FASTA on the CPU for each run this script holds the
+# port's bytes against: A and C as alga_tpu's CLI writes them, B through
+# alga_tpu.pipeline.assemble_to_file with B_KW, all on scale_datasets();
+# A_40k and B_40k as phase 10 runs them (bench_40k's reads, single-end).
+# The card has no jax, so they are constants here; re-derive them with
+# `python -m pytest tests/test_torch_reference_digests.py`, which holds
+# them against alga_tpu, whenever a recipe changes.
+REFERENCE_SHA256 = {
+    "A": "95ba0ec7af646a4c243e5b49454eb1b9170cad4b7d53c77c310daef59e4837ae",
+    "B": "a445242a67161209983586b2fcab7587f6f57599529c9f67ed4295bb43c2c410",
+    "C": "6dc6cd6bc8ccc8d080f5286f478480e747ff18de00b2594ba35839fdb4acc908",
+    "A_40k": "a2e78481419cbcd7d60b3a15053c9d578ed56be661a56696338211fbaf1e59f2",
+    "B_40k": "7e7c56154336f1de9e9f7d48b744cfa493c1c6dbe8107b592ebbeb1ead1ac75d",
+}
+# sha256 of the inputs those runs read: scale_datasets()'s FASTQ files and
+# bench_40k()'s read list, clean and with noisy_40k()'s substitutions
+DATASET_SHA256 = {
+    "A_r1.fastq":
+        "be6b4c6fb01cbca345e353e6269ef26a05a65011ba2dfb3989a3ed5a45765668",
+    "A_r2.fastq":
+        "268000f0e6e489e17c96a4da9bbe94cfc221a23617bff7fa312cbc6041a31549",
+    "B_r1.fastq":
+        "62f65bd5fd0917009bc6ea3bd4afd0c32faa550dd55d2476a5f077cc9f01ec85",
+    "B_r2.fastq":
+        "cfa282c5f9e6fd25176feb329f3cfefbae5dfbaa5f46d800ab0a2dc1cb693ffc",
+    "reads_40k":
+        "094d579b6dedf4fbcc0a18f0ea12f7d34eeeb171c157ebad9840b3e07a95e603",
+    "reads_40k_B":
+        "69e28902a115469d572c45dec770d321316d97965f00238b630f084688eb081b",
+}
 
 
 def fail(msg: str) -> None:
@@ -356,14 +411,16 @@ def real_launch_errors(banded_dp, seen, tag: str = "B") -> dict:
 # ---------------------------------------------------------------------------
 # datasets
 
-def scale_datasets():
-    """(genome, A's r1/r2 FASTQ paths, B's r1/r2 FASTQ paths).
+def scale_datasets(out_dir: Path = WORK):
+    """(genome, A's r1/r2 FASTQ paths, B's r1/r2 FASTQ paths, file reads),
+    the FASTQ files written into `out_dir`.
 
     A is bench.py's 920k-slot recipe (seed 42: 230k 300 bp fragments,
     2x100 bp mates, mates swapped half the time).  B is the same reads
     with bench.py's error-path substitutions (bench.py:336-343): each base
     is replaced with probability 2% by a different base."""
     import numpy as np
+    out_dir = Path(out_dir)
     comp = bytes.maketrans(b"ACGT", b"TGCA")
     rng = np.random.default_rng(SEED)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -382,12 +439,12 @@ def scale_datasets():
 
     noisy = substituted(mates)
 
-    WORK.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     paths = {}
     for name, mat in (("A", mates), ("B", noisy)):
         paths[name] = []
         for m in range(2):
-            path = WORK / f"{name}_r{m + 1}.fastq"
+            path = out_dir / f"{name}_r{m + 1}.fastq"
             qual = b"I" * READ_LEN
             with open(path, "wb") as f:
                 for i in range(n_frags):
@@ -395,6 +452,51 @@ def scale_datasets():
                                                     qual))
             paths[name].append(str(path))
     return genome, paths["A"], paths["B"], 2 * n_frags
+
+
+def sha256_of(data) -> str:
+    """sha256 hex digest of bytes, of a file's bytes (a Path), or of a read
+    list (its reads joined by newlines)."""
+    import hashlib
+    if isinstance(data, Path):
+        h = hashlib.sha256()
+        with open(data, "rb") as f:
+            for block in iter(lambda: f.read(1 << 24), b""):
+                h.update(block)
+        return h.hexdigest()
+    if isinstance(data, list):
+        data = "\n".join(data).encode()
+    return hashlib.sha256(data).hexdigest()
+
+
+def dataset_digests(*path_lists) -> dict:
+    """{file name: sha256} of the FASTQ files scale_datasets wrote."""
+    return {Path(p).name: sha256_of(Path(p))
+            for paths in path_lists for p in paths}
+
+
+def check_digest(tag: str, data, key: str, table=REFERENCE_SHA256) -> None:
+    """Fail unless the sha256 of `data` (or `data` itself, a hex digest) is
+    the recorded digest `key`: of alga_tpu's FASTA (REFERENCE_SHA256), or
+    of a dataset (DATASET_SHA256, with its own message); log it."""
+    got = data if isinstance(data, str) else sha256_of(data)
+    whose = "the recipe's" if table is DATASET_SHA256 else "alga_tpu's"
+    if got != table[key]:
+        if table is DATASET_SHA256:
+            fail(f"{tag}: dataset differs from the recipe's ({key}: sha256 "
+                 f"{got}, recipe {table[key]})")
+        fail(f"{tag}: FASTA sha256 {got} differs from alga_tpu's "
+             f"{table[key]} ({key})")
+    log(f"{tag}: sha256 {got} equal to {whose} ({key})")
+
+
+def noisy_40k(reads):
+    """The 40k-read list with bench.py's error-path substitutions
+    (configuration B's reads at 40k)."""
+    import numpy as np
+    mat = np.frombuffer("".join(reads).encode(), dtype=np.uint8)
+    return [r.tobytes().decode()
+            for r in substituted(mat.reshape(len(reads), -1))]
 
 
 def substituted(mat):
@@ -547,8 +649,9 @@ def pair_major_words(c):
 
 
 def run_cli(tag: str, paths, n_reads: int, extra_args=(), env=None):
-    """Configuration A through `python -m alga_tpu_torch.cli` in a process
-    of its own; (FASTA bytes, report with the CLI's wall seconds)."""
+    """The reads `paths` through `python -m alga_tpu_torch.cli` in a
+    process of its own; (FASTA bytes, report with the CLI's wall seconds
+    and counters)."""
     out = WORK / f"{tag}_contigs.fasta"
     errlog = WORK / f"{tag}_cli.log"
     t0 = time.perf_counter()
@@ -565,7 +668,7 @@ def run_cli(tag: str, paths, n_reads: int, extra_args=(), env=None):
     stats = json.loads(next(ln for ln in reversed(lines)
                             if ln.startswith('{"count"')))
     res = report(tag, stats, n_reads)
-    res["cli_wall_s"] = wall
+    res.update(cli_wall_s=wall, counters=stats["counters"])
     return out.read_bytes(), res
 
 
@@ -670,8 +773,8 @@ def spawn_ranks(n: int, paths, out: Path, device: str = "cuda",
     return reports
 
 
-def mesh_phase(dev, gargs, g_40k, a_paths, b_paths, fasta_a, n_reads,
-               banded_dp) -> dict:
+def mesh_phase(dev, gargs, g_40k, a_paths, b_paths, fasta_a, fasta_c,
+               n_reads, banded_dp) -> dict:
     """Phase 9 (see the module docstring); its record for summary.json."""
     import numpy as np
     import torch
@@ -747,8 +850,7 @@ def mesh_phase(dev, gargs, g_40k, a_paths, b_paths, fasta_a, n_reads,
     # (c) configuration B through pipeline.assemble(mesh=...)
     cfg_b = config.AssemblyConfig(
         file1=b_paths[0], file2=b_paths[1],
-        output=str(WORK / "B_mesh_contigs.fasta"), error_rate=ERR_RATE,
-        use_acler_instead_of_aclcs=False)
+        output=str(WORK / "B_mesh_contigs.fasta"), **B_KW)
     res, launches, shapes, seen = logged_run(
         banded_dp, lambda: pipeline.assemble_to_file(cfg_b, mesh=mesh))
     if ((WORK / "B_mesh_contigs.fasta").read_bytes()
@@ -762,6 +864,28 @@ def mesh_phase(dev, gargs, g_40k, a_paths, b_paths, fasta_a, n_reads,
                      "launches": launches, "launch_errors": errs}
     log(f"mesh (c): B on the mesh, FASTA byte-identical to phase 6's; "
         f"kernel launches {launches}")
+
+    # (e) configuration C through pipeline.assemble(mesh=...): its pairs
+    # go through ach_batch_mesh, the device ACLER (acler_batch) on the card
+    out_c = WORK / "C_mesh_contigs.fasta"
+    cfg_c = config.AssemblyConfig(file1=b_paths[0], file2=b_paths[1],
+                                  output=str(out_c), error_rate=ERR_RATE)
+    res, launches, _shapes, _seen = logged_run(
+        banded_dp, lambda: pipeline.assemble_to_file(cfg_c, mesh=mesh))
+    if out_c.read_bytes() != fasta_c:
+        fail("mesh (e): C on the mesh wrote other bytes than phase 6c")
+    check_digest("mesh (e)", out_c, "C")
+    counters = res.stats["counters"]
+    if counters.get("ach_low_error_approved", 0) <= 0:
+        fail(f"mesh (e): the device ACLER approved no pair: {counters}")
+    if max(launches.values()) != 0 or counters.get("ach_lcs_pairs", 0):
+        fail(f"mesh (e): C reached the LCS fallback: launches {launches}")
+    rec["C_mesh"] = {**report("C_mesh", res.stats, n_reads),
+                     "launches": launches,
+                     "ach": {k: v for k, v in counters.items()
+                             if k.startswith("ach_")}}
+    log("mesh (e): C on the mesh, FASTA byte-identical to phase 6c's; "
+        "ACH counters " + json.dumps(rec["C_mesh"]["ach"]))
 
     torch.distributed.destroy_process_group()
     rec.update(across_cards(a_paths, fasta_a))
@@ -798,20 +922,16 @@ def nonative_phase(dev, banded_dp) -> dict:
     """Phase 10 (see the module docstring); its record for summary.json."""
     from unittest import mock
 
-    import numpy as np
     import torch
     from alga_tpu_torch import config, native, pipeline
 
     genome, reads = bench_40k()
-    mat = np.frombuffer("".join(reads).encode(), dtype=np.uint8)
-    noisy = [r.tobytes().decode()
-             for r in substituted(mat.reshape(len(reads), -1))]
+    noisy = noisy_40k(reads)
+    check_digest("no engine", reads, "reads_40k", DATASET_SHA256)
+    check_digest("no engine", noisy, "reads_40k_B", DATASET_SHA256)
     index = GenomeIndex(genome.encode())
     rec = {}
-    for name, seqs, kw in (
-            ("A", reads, {}),
-            ("B", noisy, dict(error_rate=ERR_RATE,
-                              use_acler_instead_of_aclcs=False))):
+    for name, seqs, kw in (("A", reads, {}), ("B", noisy, B_KW)):
         fasta = {}
         for engine in ("engine", "no_engine"):
             tag = f"{name}_40k_{engine}"
@@ -829,6 +949,7 @@ def nonative_phase(dev, banded_dp) -> dict:
                      f"{ran_native}")
             rec[tag] = report(tag, res.stats, len(seqs))
             fasta[engine] = out.read_bytes()
+            check_digest(f"no engine: {tag}", fasta[engine], f"{name}_40k")
             if name == "B":
                 if min(launches.values()) == 0:
                     fail(f"no engine: {tag} did not launch every kernel: "
@@ -963,7 +1084,10 @@ def main() -> int:
     genome, a_paths, b_paths, n_file_reads = scale_datasets()
     log(f"datasets: {n_file_reads} file reads per configuration "
         f"({time.perf_counter() - t0:.1f}s)")
+    for name, digest in dataset_digests(a_paths, b_paths).items():
+        check_digest("datasets", digest, name, DATASET_SHA256)
     fasta_a, res_a = run_cli("A", a_paths, n_file_reads)
+    check_digest("configuration A", fasta_a, "A")
     contigs_a = [ln for ln in fasta_a.decode().splitlines()
                  if not ln.startswith(">") and ln != "CCCC"]
     if not contigs_a or res_a["n50"] <= 2 * READ_LEN:
@@ -978,8 +1102,7 @@ def main() -> int:
     # --- 6 configuration B: the main path through both kernels -----------
     cfg_b = config.AssemblyConfig(
         file1=b_paths[0], file2=b_paths[1],
-        output=str(WORK / "B_contigs.fasta"), error_rate=ERR_RATE,
-        use_acler_instead_of_aclcs=False)
+        output=str(WORK / "B_contigs.fasta"), **B_KW)
     res, launches, shapes, seen = logged_run(
         banded_dp, lambda: pipeline.assemble_to_file(cfg_b, device=dev))
     res_b = report("B", res.stats, n_file_reads)
@@ -998,7 +1121,20 @@ def main() -> int:
     if not contigs_b or ident < 0.9:
         fail(f"configuration B: {len(contigs_b)} contigs, 31-mer identity "
              f"{ident:.3f}")
+    check_digest("configuration B", WORK / "B_contigs.fasta", "B")
     log(f"B: {len(contigs_b)} contigs, 31-mer identity {ident:.4f}")
+
+    # --- 6c configuration C: the CLI's own error path (ACLER) ------------
+    fasta_c, res_c = run_cli("C", b_paths, n_file_reads, C_CLI_ARGS)
+    check_digest("configuration C", fasta_c, "C")
+    if res_c["counters"].get("ach_lcs_pairs", 0) != 0:
+        fail(f"configuration C sent pairs to the LCS fallback: "
+             f"{res_c['counters']}")
+    log(f"C: {res_c['contigs']} contigs; "
+        f"{res_c['reads_per_s']:.1f} reads/s, peak device memory "
+        f"{res_c['peak_device_mb']} MB; ACH counters "
+        + json.dumps({k: v for k, v in res_c["counters"].items()
+                      if k.startswith("ach_")}))
 
     # --- 3 (continued) the kernels at B's own shapes ----------------------
     b_rows = int(statistics.median(n for n, _ in shapes["gather_planes"]))
@@ -1038,7 +1174,7 @@ def main() -> int:
 
     # --- 9 the mesh layer --------------------------------------------------
     mesh_rec = mesh_phase(dev, gargs, g_dev, a_paths, b_paths, fasta_a,
-                          n_file_reads, banded_dp)
+                          fasta_c, n_file_reads, banded_dp)
     launches_mesh = mesh_rec["B_mesh"]["launches"]
 
     # --- 10 configurations A and B without the native host engine --------
@@ -1048,7 +1184,8 @@ def main() -> int:
                   for tag in ("B_40k_engine", "B_40k_no_engine")}}
 
     (WORK / "summary.json").write_text(json.dumps(
-        {"nvidia_smi": smi, "A": res_a, "B": res_b, "A_fused": res_7,
+        {"nvidia_smi": smi, "A": res_a, "B": res_b, "C": res_c,
+         "reference_sha256": REFERENCE_SHA256, "A_fused": res_7,
          "A_trace": res_8, "A_busy_share": share, "A_span_ms": span_ms,
          "A_trace_kernels": n_kernels,
          "B_lcs_pairs": lcs_pairs_b, "B_launches": launches,

@@ -162,6 +162,99 @@ def test_routing_override(rng, monkeypatch, mode):
     _assert_same(g_ref.retain_min_offset(), g.retain_min_offset())
 
 
+def _spy_engines(monkeypatch, compute=("host_gcps_graph",)):
+    """The names of the GCPS engines build_gcps_graph enters, in order;
+    an engine not in `compute` returns None instead of running."""
+    entered = []
+    for name in ("gcps_graph_device", "gcps_graph_device_scale",
+                 "host_gcps_graph"):
+        fn = getattr(prefsuf, name) if name in compute else None
+        monkeypatch.setattr(prefsuf, name,
+                            lambda *a, _fn=fn, _n=name, **kw:
+                            entered.append(_n) or (_fn and _fn(*a, **kw)))
+    return entered
+
+
+@pytest.mark.parametrize("case", ["cuda_small", "cuda_fused", "cuda_blocked",
+                                  "cpu_small"])
+def test_cuda_routing_size_term(rng, monkeypatch, case):
+    """Without ALGA_GCPS_DEVICE, a CUDA device (device.resolve patched to
+    report one) routes by alga_tpu's accelerator rule: under 2^18 windows
+    the host route, with the edges and counters of alga_tpu's host route;
+    at 2^18 or more the fused path under 2^19 reads, else the blocked
+    path.  The CPU keeps the blocked path for small graphs."""
+    monkeypatch.delenv("ALGA_GCPS_DEVICE", raising=False)
+    if case.startswith("cuda"):
+        monkeypatch.setattr(prefsuf.device_mod, "resolve",
+                            lambda device=None: torch.device("cuda"))
+    if case.endswith("small"):
+        packed, lengths, n = _graph_inputs(rng)
+        assert n * (int(lengths.max()) - 25 + 1) < 1 << 18
+    else:
+        # 4096 reads x 76 windows, or 2^19 reads x 11 windows: >= 2^18
+        n, L, ell = {"cuda_fused": (4096, 100, 25),
+                     "cuda_blocked": (1 << 19, 30, 20)}[case]
+        packed = np.zeros((n, packing.words_for(L)), dtype=np.uint32)
+        lengths = np.full(n, L, dtype=np.int32)
+    engine = {"cuda_small": "host_gcps_graph",
+              "cuda_fused": "gcps_graph_device",
+              "cuda_blocked": "gcps_graph_device_scale",
+              "cpu_small": "gcps_graph_device_scale"}[case]
+    entered = _spy_engines(monkeypatch, compute=(
+        (engine,) if case.endswith("small") else ()))
+    if not case.endswith("small"):
+        prefsuf.build_gcps_graph(packed, lengths, n, ell, 500, 25,
+                                 device="cpu")
+        assert entered == [engine]
+        return
+    jtimers.reset_counters()
+    g_ref = jprefsuf.build_gcps_graph(packed, lengths, n, 25, 500, 25)
+    want = jtimers.counters_report()
+    timers.reset_counters()
+    g = prefsuf.build_gcps_graph(packed, lengths, n, 25, 500, 25,
+                                 device="cpu")
+    assert entered == [engine]
+    assert g_ref.num_edges > 0
+    if case == "cuda_small":
+        # the same engine as alga_tpu's: the same arrays and counters
+        _assert_same(g_ref, g)
+        assert want["gcps_candidates"] > 0
+        assert timers.counters_report() == want
+    else:
+        _assert_same(g_ref.retain_min_offset(), g.retain_min_offset())
+
+
+@pytest.mark.parametrize("case", ["short", "masked", "long"])
+def test_long_prefix_key_run_skips_native_join(rng, monkeypatch, case):
+    """A prefix-key run of NATIVE_RUN_LIMIT rows or more (the limit lowered
+    to 4 here) keeps out of the native fused join, whose table packs a
+    run's length into 24 bits: host_gcps_graph takes find_exact_overlaps,
+    and its edges equal alga_tpu's, row for row.  `long` has reads past
+    cap + cap/4 (the contig-trim graph's tail windows)."""
+    g = random_genome(rng, 2500)
+    seqs = [g[p:p + 70 + p % 31] for p in range(0, len(g) - 100, 17)]
+    # five reads from one position: one prefix key, five rows
+    seqs += [g[400:400 + L] for L in (40, 48, 55, 63, 90)]
+    packed, lengths = packing.pack_strings(seqs)
+    n = len(seqs)
+    af = at = None
+    if case == "masked":
+        af, at = rng.random(n) > 0.2, rng.random(n) > 0.2
+        at[-5:] = True
+    cap = 60 if case == "long" else 500
+    assert (int(lengths.max()) > cap + (cap >> 2)) == (case == "long")
+
+    def refuse(*a, **kw):
+        raise AssertionError("native fused join called")
+    monkeypatch.setattr(prefsuf, "NATIVE_RUN_LIMIT", 4)
+    monkeypatch.setattr(prefsuf.native, "gcps_join_verify_packed", refuse)
+    args = (packed, lengths, n, 25, cap, 35, 3, af, at)
+    got = prefsuf.host_gcps_graph(*args, device="cpu")
+    g_ref = jprefsuf.build_gcps_graph(*args)
+    assert g_ref.num_edges > 0
+    _assert_same(g_ref, got)
+
+
 def test_small_falls_through_on_long_reads(rng, monkeypatch, capsys):
     """`small` with reads of 1024 bases or more prints alga_tpu's notice
     and routes as if unset (here: the blocked path, reads <= 1.25 cap)."""
