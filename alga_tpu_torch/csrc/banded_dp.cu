@@ -22,8 +22,10 @@
 //   sides in one launch (gridDim.y = 2); no division, no transposed copy
 //   of the table.
 //
-// K2 banded_lcs: in banded_lcs.cu, built once per band half-width E; the
-// switch in alga_banded_lcs below picks the instantiation.
+// K2 banded_lcs: in banded_lcs.cu, built once per band half-width E =
+// 0..15, and for E >= 16 in banded_lcs_wide.cu (E a runtime argument); the
+// switch in alga_banded_lcs below picks the instantiation or the wide
+// kernel by E alone.
 
 #include <cuda_runtime.h>
 
@@ -52,6 +54,9 @@ template <int E>
 int launch_lcs(const int* w1T, const int* w2T, int W, long long M,
                const int* len1, const int* len2, const int* offsets,
                int* out, cudaStream_t s);
+int launch_lcs_wide(const int* w1T, const int* w2T, int W, long long M,
+                    const int* len1, const int* len2, const int* offsets,
+                    int E, int* out, cudaStream_t s);
 }  // namespace alga_k2
 
 extern "C" {
@@ -81,7 +86,8 @@ int alga_banded_lcs(const int* w1T, const int* w2T, int W, long long M,
     ALGA_LCS_CASE(8) ALGA_LCS_CASE(9) ALGA_LCS_CASE(10) ALGA_LCS_CASE(11)
     ALGA_LCS_CASE(12) ALGA_LCS_CASE(13) ALGA_LCS_CASE(14) ALGA_LCS_CASE(15)
     default:
-      return (int)cudaErrorInvalidValue;
+      return alga_k2::launch_lcs_wide(w1T, w2T, W, M, len1, len2, offsets,
+                                      E, out, s);
   }
 }
 

@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels (alga_tpu_torch/csrc/*.cu).
 
 On first use nvcc compiles the sources for sm_90a into a shared library
-with a plain C interface, which ctypes loads: banded_dp.cu once and
-banded_lcs.cu once per band half-width, all at once, one nvcc process
-each, then one link.  The library goes into alga_tpu_torch/_build/
-(listed in .gitignore) under a name that carries a hash of the sources,
-so an edited source is rebuilt.  Nothing is built when the module is
-imported: the CPU tests import it without nvcc.
+with a plain C interface, which ctypes loads: banded_dp.cu and
+banded_lcs_wide.cu once and banded_lcs.cu once per band half-width
+0..MAX_E, all at once, one nvcc process each, then one link.  The
+library goes into alga_tpu_torch/_build/ (listed in .gitignore) under a
+name that carries a hash of the sources, so an edited source is
+rebuilt.  Nothing is built when the module is imported: the CPU tests
+import it without nvcc.
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ def build() -> Path:
         return so
     objdir = _BUILD / f"obj_{digest[:16]}_{os.getpid()}"
     objdir.mkdir(parents=True, exist_ok=True)
-    units = [(_CSRC / "banded_dp.cu", [], objdir / "banded_dp.o")]
+    units = [(_CSRC / f"{name}.cu", [], objdir / f"{name}.o")
+             for name in ("banded_dp", "banded_lcs_wide")]
     units += [(_CSRC / "banded_lcs.cu", [f"-DALGA_LCS_E={e}"],
                objdir / f"banded_lcs_{e}.o") for e in range(MAX_E + 1)]
     nvcc = _nvcc()

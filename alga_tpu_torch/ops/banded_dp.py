@@ -7,13 +7,17 @@
                  from the row-major read table.
   banded_lcs     K2, replaces _dp_kernel / _banded_lcs_pallas_x32: the
                  ACLCS banded LCS of pairs whose words are laid out
-                 pair-major ([W, M]).
+                 pair-major ([W, M]).  Band half-widths 0..MAX_E run the
+                 register-band kernel (csrc/banded_lcs.cu), wider ones
+                 the shared-memory band kernel (csrc/banded_lcs_wide.cu),
+                 which stands in for alga_tpu's XLA route for 2E+1 > 16.
 
-The kernels are in csrc/banded_dp.cu (K1, and the C interface of both)
-and csrc/banded_lcs.cu (K2).  Each wrapper runs its plain
-PyTorch version (`gather_planes_plain`, `banded_lcs_batch`) for a tensor
-on the CPU, launches its kernel for a tensor on a GPU, and raises for
-anything else.  `LAUNCHES` counts kernel launches per wrapper.
+The kernels are in csrc/banded_dp.cu (K1, and the C interface of all
+three), csrc/banded_lcs.cu and csrc/banded_lcs_wide.cu (K2).  Each
+wrapper runs its plain PyTorch version (`gather_planes_plain`,
+`banded_lcs_batch`) for a tensor on the CPU, launches its kernel for a
+tensor on a GPU, and raises for anything else.  `LAUNCHES` counts kernel
+launches, the two K2 kernels under their own names.
 """
 
 from __future__ import annotations
@@ -23,8 +27,12 @@ import torch
 from alga_tpu_torch.ops.bitops import M32
 
 MAX_E = 15      # band half-widths 0..MAX_E are instantiated in K2
+# the wide kernel's shared memory: a block of at least 32 pairs, each with
+# its two staged word streams and its band, within a block's 227 KB
+SMEM_LIMIT = 232_448
+WIDE_MIN_THREADS = 32
 
-LAUNCHES = {"gather_planes": 0, "banded_lcs": 0}
+LAUNCHES = {"gather_planes": 0, "banded_lcs": 0, "banded_lcs_wide": 0}
 
 
 def reset_launches() -> None:
@@ -157,12 +165,39 @@ def banded_lcs_batch(w1T, w2T, len1, len2, offsets, E: int = 2):
     return prev.gather(1, e_star[:, None])[:, 0].to(torch.int32)
 
 
+def wide_smem_words(W: int, E: int) -> int:
+    """32-bit words of shared memory the wide kernel takes a pair:
+    stream 1 (W words), stream 2 (W + ceil((2E+1)/16) words) and the band
+    (2E+2 cells).  csrc/banded_lcs_wide.cu computes the same."""
+    B = 2 * E + 1
+    return 2 * W + (B + 15) // 16 + B + 1
+
+
+def max_band_half_width(W: int) -> int:
+    """The widest band half-width banded_lcs takes for words of width W:
+    the wide kernel's block of WIDE_MIN_THREADS pairs must fit SMEM_LIMIT
+    (823 at W = 32, reads of 512 bases)."""
+    words = SMEM_LIMIT // (4 * WIDE_MIN_THREADS)
+    lo, hi = -1, words
+    while lo < hi:                     # wide_smem_words grows with E
+        mid = (lo + hi + 1) // 2
+        if wide_smem_words(W, mid) <= words:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
 def banded_lcs(w1T, w2T, len1, len2, offsets, E: int = 2) -> torch.Tensor:
     """int32[M]: banded LCS of M pairs given pair-major words int32[W, M]
-    of both reads, their lengths and offsets (int32[M])."""
-    if not 0 <= E <= MAX_E:
+    of both reads, their lengths and offsets (int32[M]).  E is checked
+    against the kernels' limit (max_band_half_width) on every device, so
+    a band the card refuses is refused on the CPU too."""
+    e_max = max_band_half_width(w1T.shape[0])
+    if not 0 <= E <= e_max:
         raise ValueError(f"banded_lcs: band half-width E={E} is outside "
-                         f"[0, {MAX_E}]")
+                         f"[0, {e_max}], the kernels' limit for words of "
+                         f"width W={w1T.shape[0]}")
     if not _on_gpu("banded_lcs", w1T, w2T, len1, len2, offsets):
         return banded_lcs_batch(w1T, w2T, len1, len2, offsets, E)
     for name, t, nd in (("w1T", w1T, 2), ("w2T", w2T, 2), ("len1", len1, 1),
@@ -182,6 +217,7 @@ def banded_lcs(w1T, w2T, len1, len2, offsets, E: int = 2) -> torch.Tensor:
             w1T.data_ptr(), w2T.data_ptr(), W, M, len1.data_ptr(),
             len2.data_ptr(), offsets.data_ptr(), E, out.data_ptr(),
             _stream(w1T.device))
-    _cuda.check(rc, "banded_lcs")
-    LAUNCHES["banded_lcs"] += 1
+    name = "banded_lcs" if E <= MAX_E else "banded_lcs_wide"
+    _cuda.check(rc, name)
+    LAUNCHES[name] += 1
     return out

@@ -13,10 +13,12 @@ Phases; any failure ends the run with a non-zero exit code:
              object (seconds, ptxas).
   3 kernels  each CUDA kernel against its plain PyTorch version on the card,
              exact integer equality (K2 at E = 1, 2, 3, 7, and on pairs
-             of unequal lengths at E = 0, 1, 2, 3, 7, 15), at two shapes:
-             the large one (K1: a 920k-row table, 2^20 indices; K2: 2^18
-             pairs) here, and configuration B's own (the median table rows
-             and pairs per launch that phase 6 logs) after phase 6.  Device
+             of unequal lengths at E = 0, 1, 2, 3, 7, 15; here also the
+             wide K2 kernel at E = 16, 24, 31, 63 on both, and pairs of
+             250-base reads at E = 2, 15, 16, 63), at the large shape (K1:
+             a 920k-row table, 2^20 indices; K2: 2^18 pairs of 100 bp) here,
+             and at configuration B's own (the median table rows and pairs
+             per launch that phase 6 logs) after phase 6.  Device
              milliseconds of each kernel (a CUDA graph of 20 launches), of
              its plain version and of the one library call that computes
              the same gather (K1: index_select), the bound (the least time
@@ -110,12 +112,30 @@ Phases; any failure ends the run with a non-zero exit code:
              ach_total_alignments and ach_low_error_approved (only the
              device ACLER bumps the latter, so it ran on one card).
              Phase seconds and peak device memory of each.
+ 12 lengths  the read lengths users sequence, on A's genome at 30x:
+             NOVASEQ150 (2x150 bp, 400 bp inserts, 920k file reads: A150
+             clean, B150 with the 2% substitutions, T150 = B150 with each
+             mate trimmed to 75-150 bases) and MISEQ250 (2x250 bp, 550 bp
+             inserts: A250, B250), their FASTQ files' sha256 checked first.
+             A-150, A-250 through the CLI with ALGA_SCALE_LOG=1: alga_tpu's
+             sha256, the CPU run's GCPS stage counts, every contig an exact
+             genome substring.  B-150, T-150, B-250 through
+             pipeline.assemble_to_file with B_KW, as phase 6: K1 and K2
+             once per LCS batch, every launch exact against its plain
+             version on its own inputs, alga_tpu's sha256 and
+             ach_lcs_alignments; then phase 3's kernel checks and times at
+             B-150's and B-250's median launch shapes.  B_40k_E16: phase
+             10's noisy 40k reads with B_KW and max_error_rate_for_lcs=16,
+             the wide K2 kernel once per LCS batch, every launch exact,
+             alga_tpu's sha256, the kernel timed at its median launch.
+             Phase seconds, file reads/s, contigs and peak device memory of
+             each run.
 
 Phases 7, 8 and 9 compare their FASTA with phases 5, 6 and 6c, so every
 assembly of the run is held byte for byte against alga_tpu's output.
-The kernels' launch counts are those of phases 6, 9c, 10's two B runs and
-11's B-12M together (each counted from 0 just before its run).  The last
-three lines of standard
+The kernels' launch counts are those of phases 6, 9c, 10's two B runs,
+11's B-12M and 12's B-150, T-150, B-250 and B_40k_E16 together (each
+counted from 0 just before its run).  The last three lines of standard
 output are the card's nvidia-smi line, the kernels' JSON record and the
 result line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Datasets and logs go to build/chip_smoke/ in the checkout.
@@ -145,7 +165,10 @@ ERR_SEED = 11
 ERR_RATE = 0.02
 
 KERNEL_SOURCES = {"gather_planes": "alga_tpu_torch/csrc/banded_dp.cu",
-                  "banded_lcs": "alga_tpu_torch/csrc/banded_lcs.cu"}
+                  "banded_lcs": "alga_tpu_torch/csrc/banded_lcs.cu",
+                  "banded_lcs_wide": "alga_tpu_torch/csrc/banded_lcs_wide.cu"}
+# the band half-widths phase 3 checks the wide K2 kernel at
+WIDE_E = (16, 24, 31, 63)
 
 # the configurations beside A (the default run): B runs the ACLCS fallback
 # (both kernels), C is the CLI's `--error-rate 0.02` (ACLER only)
@@ -161,16 +184,32 @@ FLAGSHIP = {"genome_len": 20_000_000, "coverage": 20, "seed": 42,
             "sets": (("F", False),)}
 CONFIG3 = {"genome_len": 12_000_000, "coverage": 20, "seed": 9,
            "sets": (("G", True),)}
+# the read lengths users sequence, on A's 4.6 Mb genome (seed 42) at 30x:
+# 2x150 bp mates of 400 bp inserts as a NovaSeq or HiSeq X run gives them
+# (460,000 fragments = 920,000 file reads = 1,840,000 read slots, twice
+# A's), clean (A150), with the 2% substitutions (B150) and those reads
+# quality-trimmed to 75-150 bases (T150); 2x250 bp mates of 550 bp
+# inserts as a MiSeq run gives them (276,000 fragments), clean (A250) and
+# noisy (B250)
+NOVASEQ150 = {"genome_len": GENOME_LEN, "coverage": 30, "seed": SEED,
+              "read_len": 150, "insert": 400,
+              "sets": (("A150", False), ("B150", True),
+                       ("T150", True, True))}
+MISEQ250 = {"genome_len": GENOME_LEN, "coverage": 30, "seed": SEED,
+            "read_len": 250, "insert": 550,
+            "sets": (("A250", False), ("B250", True))}
 
 # sha256 of alga_tpu's FASTA on the CPU for each run this script holds the
 # port's bytes against: A and C as alga_tpu's CLI writes them, B through
 # alga_tpu.pipeline.assemble_to_file with B_KW, all on scale_datasets();
 # A_40k and B_40k as phase 10 runs them (bench_40k's reads, single-end);
 # A_20M, B_12M and C_12M the same three runs on the FLAGSHIP (A) and
-# CONFIG3 (B, C) recipes.  The card has no jax, so they are constants
-# here; re-derive them with `python -m pytest
-# tests/test_torch_reference_digests.py` (add `-m slow` for the three
-# large ones), which holds them against alga_tpu, whenever a recipe
+# CONFIG3 (B, C) recipes; A_150, B_150, T_150 on NOVASEQ150 and A_250,
+# B_250 on MISEQ250 (A through the CLI, B and T with B_KW); B_40k_E16 as
+# phase 12 runs it (B_40k with B_E16_KW).  The card has no jax, so they
+# are constants here; re-derive them with `python -m pytest
+# tests/test_torch_reference_digests.py` (add `-m slow` for the large and
+# read-length ones), which holds them against alga_tpu, whenever a recipe
 # changes.
 REFERENCE_SHA256 = {
     "A": "95ba0ec7af646a4c243e5b49454eb1b9170cad4b7d53c77c310daef59e4837ae",
@@ -184,10 +223,22 @@ REFERENCE_SHA256 = {
         "336aca2bbfcc3f7bbd70e6e54b24cd04269b44870e17c263657946b0ab02bf93",
     "C_12M":
         "7c6f00f3e2ca1cb82e7a4d2e98c87675e10b7e611ca105eade118fa3a87af7ee",
+    "A_150":
+        "f31df4b3e0d59882f33b881ecbbd2d1324fb99245dd4f47ead1b6dda301fe667",
+    "B_150":
+        "83e783c6c9a90cced133343292af2450e990f94aad710123b6a14399999ea4c9",
+    "T_150":
+        "b187e7d060671b599633437efded2b9e0cd0c99d8a8a36a40a52a788babc32e2",
+    "A_250":
+        "e77130bd47a83e4da0d7d6398e965b78cd0eec004f56b7293fa4306110b6c8f3",
+    "B_250":
+        "fd15bab8199be2eff4717c53e99b40841f26f839f009f6c67437716cd5da9674",
+    "B_40k_E16":
+        "f01ba48f0f3212c7ec6e048a6319a40db0f0ad19ad927ab59b60a80f821bd3b9",
 }
 # sha256 of the inputs those runs read: scale_datasets()'s FASTQ files (with
-# its defaults, FLAGSHIP and CONFIG3) and bench_40k()'s read list, clean and
-# with noisy_40k()'s substitutions
+# its defaults, FLAGSHIP, CONFIG3, NOVASEQ150 and MISEQ250) and
+# bench_40k()'s read list, clean and with noisy_40k()'s substitutions
 DATASET_SHA256 = {
     "A_r1.fastq":
         "be6b4c6fb01cbca345e353e6269ef26a05a65011ba2dfb3989a3ed5a45765668",
@@ -209,6 +260,26 @@ DATASET_SHA256 = {
         "75430b35842af9919c1fd70e14381f467909fbcd226630a852a34f4177a9b07a",
     "G_r2.fastq":
         "ffbd34c746bf5e67f1865473271175eaeec4c9c635e87f112f6253b9b1dec872",
+    "A150_r1.fastq":
+        "08c256025e3eaa7168d511530e6cfb8d08637c36dffcfeb9e7636c353d826cbd",
+    "A150_r2.fastq":
+        "8ef63524dff7c533f416f585bb3f54330ea3d9513dfb4d8def8fedd13982c688",
+    "B150_r1.fastq":
+        "24e0517af1769e823b29bb16f70f0b355c0720466151c1901e6feb121ed3262b",
+    "B150_r2.fastq":
+        "3bc5f641cb6431d254c21b3eb46d92df5699d20cd9e249e61b11e8244db2c5f3",
+    "T150_r1.fastq":
+        "740ef29a123f89652c0d4e7a791984da51bdf25b47f72bc058a04cf341493707",
+    "T150_r2.fastq":
+        "329ea8a0f2b7110aeb93ba56c348c63f7b199b3a318a420ec96906ccb4d9d5ae",
+    "A250_r1.fastq":
+        "2f0d3d34d70289ae4d8a7004342ddc0ed186ab34cab7165b59569a8003841069",
+    "A250_r2.fastq":
+        "fc808696434e97cba071aee98f0d8bc8f85f7e1d09b59a7e1dddfb0dfdeb2295",
+    "B250_r1.fastq":
+        "ff4c63c9b52db9242adedf1c2bf96bc6f21847d34cab4889e4eae50b611edba5",
+    "B250_r2.fastq":
+        "13469325cc6dd8a43bcfa19156adacfcf73c88b5fbbc11531167b7cf018f1ceb",
 }
 
 
@@ -319,20 +390,24 @@ def k2_bound(w1T, len1, len2, off, E, n_sm):
             else (bytes_ms, "bytes"))
 
 
-def kernel_phase(dev, banded_dp, tag, n_rows, m_k1, m_k2):
+def kernel_phase(dev, banded_dp, tag, n_rows, m_k1, m_k2,
+                 read_len: int = READ_LEN, wide: bool = False):
     """Both kernels against their plain versions at one shape, exact
     (K2 at E = 1, 2, 3, 7, and at E = 0, 1, 2, 3, 7, 15 on pairs of
     unequal lengths), with their device times, plain and library times
-    and bounds.  K1: a table of n_rows reads of 100 bp and m_k1 pairs; K2:
-    m_k2 pairs of 100 bp reads."""
+    and bounds.  K1: a table of n_rows reads of read_len bases and m_k1
+    pairs; K2: m_k2 pairs of read_len-base reads.  With `wide`, also the
+    wide K2 kernel: exact at E = 16, 24, 31, 63 on those pairs and on the
+    ragged ones, and on pairs of 250-base reads at E = 2, 15, 16, 63 (both
+    K2 kernels), timed at E = 16 on the read_len-base pairs."""
     import torch
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
-    W = 7                                 # words of a 100 bp read
+    W = (read_len + 15) // 16             # words of a read_len-base read
     packed = torch.randint(-2**31, 2**31 - 1, (n_rows, W), generator=gen,
                            device=dev, dtype=torch.int32)
-    lengths = torch.randint(60, 113, (n_rows,), generator=gen, device=dev,
-                            dtype=torch.int32)
+    lengths = torch.randint(read_len * 6 // 10, 16 * W + 1, (n_rows,),
+                            generator=gen, device=dev, dtype=torch.int32)
     idx = torch.randint(0, n_rows, (2, m_k1), generator=gen, device=dev,
                         dtype=torch.int32)
     idx[:, ::97] = -1                     # a few indices out of range
@@ -362,11 +437,17 @@ def kernel_phase(dev, banded_dp, tag, n_rows, m_k1, m_k2):
         + json.dumps({k: v for k, v in res.items() if k != "shape"}))
     del k1, planes, idx_in
 
-    pairs = lcs_pairs(m_k2, 1, dev)
+    pairs = lcs_pairs(m_k2, 1, dev, read_len)
     ragged = ragged_lcs_pairs(m_k2, 2, dev)
-    k2_err = 0
-    for name, args, Es in (("100 bp", pairs, (1, 2, 3, 7)),
-                           ("ragged", ragged, (0, 1, 2, 3, 7, 15))):
+    checks = [(f"{read_len} bp", pairs, (1, 2, 3, 7)),
+              ("ragged", ragged, (0, 1, 2, 3, 7, 15))]
+    if wide:
+        checks += [(f"{read_len} bp", pairs, WIDE_E),
+                   ("ragged", ragged, WIDE_E),
+                   ("250 bp", lcs_pairs(m_k2, 3, dev, 250), (2, 15, 16, 63))]
+    errs = {"banded_lcs": 0, "banded_lcs_wide": 0}
+    checked = [(name, Es) for name, _, Es in checks]
+    for name, args, Es in checks:
         for E in Es:
             err = int((banded_dp.banded_lcs(*args, E).long()
                        - banded_dp.banded_lcs_batch(*args, E).long())
@@ -374,19 +455,24 @@ def kernel_phase(dev, banded_dp, tag, n_rows, m_k1, m_k2):
             if err != 0:
                 fail(f"{tag}: banded_lcs (E={E}, {name} pairs) differs "
                      f"from its plain version ({err})")
-            k2_err = max(k2_err, err)
-    del ragged
-    bound, kind = k2_bound(pairs[0], *pairs[2:], 2, n_sm)
-    res = {"shape": f"{m_k2} pairs of 100 bp, E=2",
-           "max_abs_err": k2_err, "bound_ms": bound, "bound_by": kind,
-           "plain_ms": median_ms(
-               lambda: banded_dp.banded_lcs_batch(*pairs, 2), 5),
-           "library_ms": None}
-    res["ms"] = graph_ms(lambda: banded_dp.banded_lcs(*pairs, 2))
-    out["banded_lcs"] = res
-    log(f"K2 banded_lcs at {tag} shape ({res['shape']}; E=1,2,3,7 exact; "
-        f"ragged pairs at E=0,1,2,3,7,15 exact): "
-        + json.dumps({k: v for k, v in res.items() if k != "shape"}))
+            k = "banded_lcs" if E <= banded_dp.MAX_E else "banded_lcs_wide"
+            errs[k] = max(errs[k], err)
+    del ragged, checks
+    for name, E in [("banded_lcs", 2)] + [("banded_lcs_wide", 16)] * wide:
+        bound, kind = k2_bound(pairs[0], *pairs[2:], E, n_sm)
+        res = {"shape": f"{m_k2} pairs of {read_len} bp, E={E}",
+               "max_abs_err": errs[name], "bound_ms": bound,
+               "bound_by": kind,
+               "plain_ms": median_ms(
+                   lambda: banded_dp.banded_lcs_batch(*pairs, E),
+                   5 if E == 2 else 3),
+               "library_ms": None}
+        res["ms"] = graph_ms(lambda: banded_dp.banded_lcs(*pairs, E))
+        out[name] = res
+        log(f"K2 {name} at {tag} shape ({res['shape']}; exact at E = "
+            + "; ".join(f"{n}: {','.join(map(str, Es))}"
+                        for n, Es in checked) + "): "
+            + json.dumps({k: v for k, v in res.items() if k != "shape"}))
     for name, r in out.items():
         log(f"{name} at {tag} shape: {r['ms']:.4f} ms, bound "
             f"{1e3 * r['bound_ms']:.2f} us ({r['bound_by']}), bound share "
@@ -430,20 +516,22 @@ def logged_run(banded_dp, fn):
 
 
 def real_launch_errors(banded_dp, seen, tag: str = "B") -> dict:
-    """{kernel: max abs error}: the output of each launch phase 6 saw on
-    B's path against the plain version on the same inputs (B's own read
-    table, pairs, lengths and offsets), exact."""
-    import torch
-    errs = {}
-    for name, plain in (("gather_planes", banded_dp.gather_planes_plain),
-                        ("banded_lcs", banded_dp.banded_lcs_batch)):
-        errs[name] = 0
-        for args, got in seen[name]:
+    """{kernel: max abs error}: the output of each launch a run saw on
+    its path against the plain version on the same inputs (the run's own
+    read table, pairs, lengths and offsets), exact; K2's launches count
+    under the kernel their band half-width took."""
+    errs = {"gather_planes": 0, "banded_lcs": 0, "banded_lcs_wide": 0}
+    for wrapper, plain in (("gather_planes", banded_dp.gather_planes_plain),
+                           ("banded_lcs", banded_dp.banded_lcs_batch)):
+        for args, got in seen[wrapper]:
+            name = (wrapper if wrapper == "gather_planes"
+                    or args[5] <= banded_dp.MAX_E else "banded_lcs_wide")
             errs[name] = max(errs[name], int(
                 (got.long() - plain(*args).long()).abs().max()))
-        if errs[name] != 0:
+    for name, err in errs.items():
+        if err != 0:
             fail(f"{tag}: a launch of {name} differs from its plain "
-                 f"version on the same inputs ({errs[name]})")
+                 f"version on the same inputs ({err})")
     lcs = [a for a, _ in seen["banded_lcs"]]
     log(f"{tag}: every launch exact against its plain version on its own "
         f"inputs ({len(seen['gather_planes'])} K1, {len(lcs)} K2); K2 "
@@ -456,54 +544,76 @@ def real_launch_errors(banded_dp, seen, tag: str = "B") -> dict:
     return errs
 
 
+def check_lcs_launches(tag: str, launches: dict,
+                       lcs: str = "banded_lcs") -> None:
+    """Fail unless K1 and the K2 kernel `lcs` (banded_lcs for E <= 15,
+    banded_lcs_wide above) launched once per LCS batch, at least once,
+    and the other K2 kernel never."""
+    other = ({"banded_lcs", "banded_lcs_wide"} - {lcs}).pop()
+    if (launches["gather_planes"] == 0 or launches[other] != 0
+            or launches["gather_planes"] != launches[lcs]):
+        fail(f"{tag}: K1 and {lcs} did not launch once per LCS batch: "
+             f"{launches}")
+
+
 # ---------------------------------------------------------------------------
 # datasets
 
 def scale_datasets(out_dir: Path = WORK, genome_len: int = GENOME_LEN,
                    coverage: float = COVERAGE, seed: int = SEED,
-                   sets=(("A", False), ("B", True))):
+                   sets=(("A", False), ("B", True)),
+                   read_len: int = READ_LEN, insert: int = INSERT):
     """(genome, {set name: [r1, r2] FASTQ paths}, file reads per set), the
     files `<name>_r1.fastq` and `<name>_r2.fastq` written into `out_dir`
-    for each (name, noisy) of `sets`.
+    for each (name, noisy) or (name, noisy, trim) of `sets`.
 
     The reads: a random genome of `genome_len` bases (seed `seed`),
-    genome_len * coverage / 200 fragments of 300 bp, 2x100 bp mates,
-    mates swapped half the time; a noisy set carries bench.py's error-path
-    substitutions (`substituted`).  The defaults are bench.py's 920k-slot
-    recipe (seed 42: 230k fragments), A clean and B noisy; FLAGSHIP and
-    CONFIG3 are alga_tpu's larger ones."""
+    genome_len * coverage / (2 * read_len) fragments of `insert` bases,
+    2 x read_len mates, mates swapped half the time; a noisy set carries
+    bench.py's error-path substitutions (`substituted`); a trimmed set
+    has each mate's 3' end cut to a length drawn uniformly from
+    [read_len // 2, read_len] (generator seed + 1, so the other sets keep
+    their bytes).  The defaults are bench.py's 920k-slot recipe (seed 42,
+    2x100 bp, 300 bp inserts: 230k fragments), A clean and B noisy;
+    FLAGSHIP, CONFIG3, NOVASEQ150 and MISEQ250 are larger or longer
+    ones."""
     import numpy as np
     out_dir = Path(out_dir)
     comp = bytes.maketrans(b"ACGT", b"TGCA")
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
     genome = bases[rng.integers(0, 4, size=genome_len)].tobytes()
-    n_frags = int(genome_len * coverage / 200)
-    mates = np.empty((2, n_frags, READ_LEN), dtype=np.uint8)
+    n_frags = int(genome_len * coverage / (2 * read_len))
+    mates = np.empty((2, n_frags, read_len), dtype=np.uint8)
     for i in range(n_frags):
-        p = int(rng.integers(0, genome_len - INSERT + 1))
-        frag = genome[p:p + INSERT]
-        a = frag[:READ_LEN]
-        b = frag[-READ_LEN:].translate(comp)[::-1]
+        p = int(rng.integers(0, genome_len - insert + 1))
+        frag = genome[p:p + insert]
+        a = frag[:read_len]
+        b = frag[-read_len:].translate(comp)[::-1]
         if rng.random() < 0.5:
             a, b = b.translate(comp)[::-1], a.translate(comp)[::-1]
         mates[0, i] = np.frombuffer(a, dtype=np.uint8)
         mates[1, i] = np.frombuffer(b, dtype=np.uint8)
+    trim_lens = (np.random.default_rng(seed + 1).integers(
+        read_len // 2, read_len + 1, size=(2, n_frags))
+        if any(any(s[2:]) for s in sets) else None)
 
     out_dir.mkdir(parents=True, exist_ok=True)
+    quals = [b"I" * k for k in range(read_len + 1)]
     paths = {}
-    for name, noisy in sets:
+    for name, noisy, *trim in sets:
         mat = substituted(mates) if noisy else mates
         paths[name] = []
         for m in range(2):
             path = out_dir / f"{name}_r{m + 1}.fastq"
-            seqs = mat[m].view(f"S{READ_LEN}").ravel().tolist()
-            qual = b"I" * READ_LEN
+            seqs = mat[m].view(f"S{read_len}").ravel().tolist()
+            if any(trim):
+                seqs = [s[:k] for s, k in zip(seqs, trim_lens[m].tolist())]
             with open(path, "wb") as f:
                 for lo in range(0, n_frags, 1 << 16):
                     f.write(b"".join(
-                        b"@r%d\n%s\n+\n%s\n" % (i, s, qual) for i, s in
-                        enumerate(seqs[lo:lo + (1 << 16)], lo)))
+                        b"@r%d\n%s\n+\n%s\n" % (i, s, quals[len(s)])
+                        for i, s in enumerate(seqs[lo:lo + (1 << 16)], lo)))
             paths[name].append(str(path))
     return genome, paths, 2 * n_frags
 
@@ -645,24 +755,25 @@ class GenomeIndex:
         return hits / max(total, 1)
 
 
-def lcs_pairs(m: int, seed: int, dev):
-    """Pair-major words of m pairs of 100 bp reads: read 2 is read 1
-    from offset 0-45 on, with 2% substitutions, then random bases."""
+def lcs_pairs(m: int, seed: int, dev, read_len: int = READ_LEN):
+    """Pair-major words of m pairs of read_len-base reads: read 2 is read
+    1 from offset 0 to 46% of read_len on, with 2% substitutions, then
+    random bases."""
     import torch
-    W = 7
+    L = 16 * ((read_len + 15) // 16)
     g = torch.Generator(device=dev).manual_seed(seed)
-    c1 = torch.randint(0, 4, (m, 112), generator=g, device=dev)
-    off = torch.randint(0, 46, (m,), generator=g, device=dev)
-    cols = torch.arange(112, device=dev)[None, :]
-    src = (cols + off[:, None]).clamp(max=111)
-    c2 = torch.where(cols + off[:, None] < 100, c1.gather(1, src),
-                     torch.randint(0, 4, (m, 112), generator=g,
-                                   device=dev))
-    noise = torch.rand((m, 112), generator=g, device=dev) < ERR_RATE
+    c1 = torch.randint(0, 4, (m, L), generator=g, device=dev)
+    off = torch.randint(0, read_len * 46 // 100, (m,), generator=g,
+                        device=dev)
+    cols = torch.arange(L, device=dev)[None, :]
+    src = (cols + off[:, None]).clamp(max=L - 1)
+    c2 = torch.where(cols + off[:, None] < read_len, c1.gather(1, src),
+                     torch.randint(0, 4, (m, L), generator=g, device=dev))
+    noise = torch.rand((m, L), generator=g, device=dev) < ERR_RATE
     c2 = torch.where(noise, (c2 + 1) % 4, c2)
-    c1[:, 100:] = 0
-    c2[:, 100:] = 0
-    lens = torch.full((m,), READ_LEN, dtype=torch.int32, device=dev)
+    c1[:, read_len:] = 0
+    c2[:, read_len:] = 0
+    lens = torch.full((m,), read_len, dtype=torch.int32, device=dev)
     return (pair_major_words(c1), pair_major_words(c2), lens, lens.clone(),
             off.to(torch.int32))
 
@@ -910,9 +1021,7 @@ def mesh_phase(dev, gargs, g_40k, a_paths, b_paths, fasta_a, fasta_c,
     if ((WORK / "B_mesh_contigs.fasta").read_bytes()
             != (WORK / "B_contigs.fasta").read_bytes()):
         fail("mesh (c): B on the mesh wrote other bytes than phase 6")
-    if min(launches.values()) == 0:
-        fail(f"mesh (c): B on the mesh did not launch every kernel: "
-             f"{launches}")
+    check_lcs_launches("mesh (c): B on the mesh", launches)
     errs = real_launch_errors(banded_dp, seen, "B on the mesh")
     rec["B_mesh"] = {**report("B_mesh", res.stats, n_reads),
                      "launches": launches, "launch_errors": errs}
@@ -999,12 +1108,14 @@ def scale_stages(text: str) -> dict:
     return out
 
 
-def check_counters(tag: str, counters: dict, want: dict) -> None:
-    """Fail unless `counters` hold alga_tpu's values `want`; log them."""
+def check_counters(tag: str, counters: dict, want: dict,
+                   whose: str = "alga_tpu's") -> None:
+    """Fail unless `counters` hold the values `want` (alga_tpu's, or those
+    of the same run on the CPU); log them."""
     got = {k: counters.get(k, 0) for k in want}
     if got != want:
-        fail(f"{tag}: counters {got} differ from alga_tpu's {want}")
-    log(f"{tag}: counters equal to alga_tpu's: {json.dumps(got)}")
+        fail(f"{tag}: counters {got} differ from {whose} {want}")
+    log(f"{tag}: counters equal to {whose}: {json.dumps(got)}")
 
 
 def flagship_phase(dev, banded_dp) -> dict:
@@ -1046,10 +1157,7 @@ def flagship_phase(dev, banded_dp) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     res, launches, shapes, seen = logged_run(
         banded_dp, lambda: pipeline.assemble_to_file(cfg, device=dev))
-    if min(launches.values()) == 0 or (launches["gather_planes"]
-                                       != launches["banded_lcs"]):
-        fail(f"B-12M: K1 and K2 did not launch once per LCS batch: "
-             f"{launches}")
+    check_lcs_launches("B-12M", launches)
     errs = real_launch_errors(banded_dp, seen, "B-12M")
     del seen
     check_digest("B-12M", WORK / "B_12M_contigs.fasta", "B_12M")
@@ -1069,6 +1177,132 @@ def flagship_phase(dev, banded_dp) -> dict:
     check_counters("C-12M", res["counters"], ACH_12M["C_12M"])
     rec["C_12M"] = res
     torch.cuda.synchronize()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the read lengths users sequence
+
+# counts of the same runs on the CPU, which the card's must equal: the
+# blocked GCPS stages of A_150 and A_250 (the port's CLI with --device cpu,
+# whose FASTA is alga_tpu's), alga_tpu's ACLCS pairs in the B runs (its
+# batches of fewer than 200k pairs take the host branch, which does not
+# count them)
+READ_LENGTH_STAGES = {
+    "A_150": {"matches": 18_729_840, "pairs": 13_377_641,
+              "removers": 8_459_122, "exp_total": 50_506_402,
+              "edges": 1_698_553},
+    "A_250": {"matches": 12_590_832, "pairs": 9_067_680,
+              "removers": 5_998_766, "exp_total": 38_167_420,
+              "edges": 1_052_379},
+}
+ACH_READ_LENGTHS = {"B_150": {"ach_lcs_alignments": 217_755},
+                    "T_150": {"ach_lcs_alignments": 0},
+                    "B_250": {"ach_lcs_alignments": 0}}
+# phase 10's noisy 40k reads with the band half-width of the wide K2 kernel
+B_E16_KW = {**B_KW, "max_error_rate_for_lcs": 16}
+
+
+def read_length_phase(dev, banded_dp, index) -> dict:
+    """Phase 12 (see the module docstring); its record for summary.json.
+    `index` is phase 5's GenomeIndex: both recipes draw A's genome."""
+    import torch
+    from alga_tpu_torch import config, pipeline
+    t0 = time.perf_counter()
+    paths, n_reads = {}, {}
+    for recipe in (NOVASEQ150, MISEQ250):
+        _, got, n = scale_datasets(WORK, **recipe)
+        paths.update(got)
+        n_reads.update({name: n for name in got})
+    log(f"read lengths: datasets {sorted(paths)} written in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for name, digest in dataset_digests(*paths.values()).items():
+        check_digest("read lengths", digest, name, DATASET_SHA256)
+    rec = {"datasets_s": time.perf_counter() - t0}
+
+    # A-150, A-250: fresh CLI processes, the blocked GCPS at its new widths
+    for tag, name in (("A_150", "A150"), ("A_250", "A250")):
+        fasta, res = run_cli(tag, paths[name], n_reads[name],
+                             env={"ALGA_SCALE_LOG": "1"})
+        check_digest(tag, fasta, tag)
+        stages = scale_stages((WORK / f"{tag}_cli.log").read_text())
+        check_counters(f"{tag} GCPS stages", stages, READ_LENGTH_STAGES[tag],
+                       "the CPU run's")
+        contigs = [ln for ln in fasta.decode().splitlines()
+                   if not ln.startswith(">") and ln != "CCCC"]
+        if not contigs or not all(index.contains(c) for c in contigs):
+            fail(f"{tag}: {len(contigs)} contigs, not all exact genome "
+                 "substrings")
+        rec[tag] = {**res, "stages": stages}
+        log(f"{tag}: {len(contigs)} contigs, all exact genome substrings")
+
+    # B-150, T-150, B-250 in-process: K1 and K2 at their widths
+    shapes_by = {}
+    for tag, name in (("B_150", "B150"), ("T_150", "T150"),
+                      ("B_250", "B250")):
+        out = WORK / f"{tag}_contigs.fasta"
+        cfg = config.AssemblyConfig(file1=paths[name][0],
+                                    file2=paths[name][1], output=str(out),
+                                    **B_KW)
+        res, launches, shapes, seen = logged_run(
+            banded_dp, lambda: pipeline.assemble_to_file(cfg, device=dev))
+        check_lcs_launches(tag, launches)
+        errs = real_launch_errors(banded_dp, seen, tag)
+        del seen
+        check_digest(tag, out, tag)
+        check_counters(tag, res.stats["counters"], ACH_READ_LENGTHS[tag])
+        rec[tag] = {**report(tag, res.stats, n_reads[name]),
+                    "launches": launches, "launch_errors": errs,
+                    "lcs_pairs": res.stats["counters"].get("ach_lcs_pairs",
+                                                           0),
+                    "launch_shapes": shapes}
+        shapes_by[tag] = shapes
+        log(f"{tag}: kernel launches {launches}; "
+            f"{rec[tag]['lcs_pairs']} pairs through K2; K1 (table rows, "
+            f"pairs) per launch {shapes['gather_planes']}")
+
+    # K1 and K2 at B-150's and B-250's median launch shapes
+    for tag, read_len in (("B_150", 150), ("B_250", 250)):
+        sh = shapes_by[tag]
+        rec[f"kernels_{tag}"] = kernel_phase(
+            dev, banded_dp, tag.replace("_", "-"),
+            int(statistics.median(n for n, _ in sh["gather_planes"])),
+            int(statistics.median(m for _, m in sh["gather_planes"])),
+            int(statistics.median(sh["banded_lcs"])), read_len)
+
+    # B_40k_E16: the wide K2 kernel on a real assembly's pairs
+    genome, reads = bench_40k()
+    noisy = noisy_40k(reads)
+    check_digest("B_40k_E16", noisy, "reads_40k_B", DATASET_SHA256)
+    out = WORK / "B_40k_E16.fasta"
+    cfg = config.AssemblyConfig(output=str(out), **B_E16_KW)
+    res, launches, shapes, seen = logged_run(
+        banded_dp, lambda: pipeline.assemble_to_file(
+            cfg, file1_seqs=noisy, device=dev))
+    check_lcs_launches("B_40k_E16", launches, "banded_lcs_wide")
+    errs = real_launch_errors(banded_dp, seen, "B_40k_E16")
+    check_digest("B_40k_E16", out, "B_40k_E16")
+    rec["B_40k_E16"] = {**report("B_40k_E16", res.stats, len(noisy)),
+                        "launches": launches, "launch_errors": errs,
+                        "lcs_pairs": res.stats["counters"].get(
+                            "ach_lcs_pairs", 0),
+                        "launch_shapes": shapes}
+    # the wide kernel timed at B_40k_E16's median launch, on its own inputs
+    args = seen["banded_lcs"][len(seen["banded_lcs"]) // 2][0]
+    del seen
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    bound, kind = k2_bound(args[0], *args[2:], n_sm)
+    t = {"shape": f"{args[0].shape[1]} pairs of B_40k_E16, E=16",
+         "max_abs_err": errs["banded_lcs_wide"], "bound_ms": bound,
+         "bound_by": kind, "library_ms": None,
+         "plain_ms": median_ms(lambda: banded_dp.banded_lcs_batch(*args), 3),
+         "ms": graph_ms(lambda: banded_dp.banded_lcs(*args))}
+    rec["kernels_B_40k_E16"] = {"banded_lcs_wide": t}
+    log(f"B_40k_E16: kernel launches {launches}; banded_lcs_wide at its "
+        f"median launch: " + json.dumps(t))
+    torch.cuda.synchronize()
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"read lengths: phase 12 took {rec['phase_s']:.1f}s")
     return rec
 
 
@@ -1108,9 +1342,7 @@ def nonative_phase(dev, banded_dp) -> dict:
             fasta[engine] = out.read_bytes()
             check_digest(f"no engine: {tag}", fasta[engine], f"{name}_40k")
             if name == "B":
-                if min(launches.values()) == 0:
-                    fail(f"no engine: {tag} did not launch every kernel: "
-                         f"{launches}")
+                check_lcs_launches(f"no engine: {tag}", launches)
                 rec[tag].update(
                     launches=launches,
                     lcs_pairs=res.stats["counters"].get("ach_lcs_pairs", 0),
@@ -1177,7 +1409,8 @@ def main() -> int:
             log(f"ptxas: {line.strip()}")
 
     # --- 3 kernels against their plain versions, main shapes -------------
-    k_main = kernel_phase(dev, banded_dp, "main", 920_000, 1 << 19, 1 << 18)
+    k_main = kernel_phase(dev, banded_dp, "main", 920_000, 1 << 19, 1 << 18,
+                          wide=True)
 
     # --- 4 device GCPS against the native engine -------------------------
     cfg = config.AssemblyConfig()
@@ -1268,11 +1501,7 @@ def main() -> int:
     log(f"B: kernel launches {launches}; pairs through K2: {lcs_pairs_b}; "
         f"K1 (table rows, pairs) per launch {shapes['gather_planes']}; K2 "
         f"pairs per launch {shapes['banded_lcs']}")
-    if min(launches.values()) == 0:
-        fail(f"configuration B did not launch every kernel: {launches}")
-    if launches["gather_planes"] != launches["banded_lcs"]:
-        fail(f"configuration B: K1 did not launch once per LCS batch "
-             f"({launches})")
+    check_lcs_launches("configuration B", launches)
     real_err = real_launch_errors(banded_dp, seen)
     contigs_b = [c.seq for c in res.contigs if c.seq != "CCCC"]
     ident = index.kmer_share(contigs_b)
@@ -1346,10 +1575,20 @@ def main() -> int:
         int(statistics.median(n for n, _ in b12["gather_planes"])),
         int(statistics.median(m for _, m in b12["gather_planes"])),
         int(statistics.median(b12["banded_lcs"])))
-    by_path = {"B": launches, "B_mesh": launches_mesh,
-               **{tag: nonative[tag]["launches"]
-                  for tag in ("B_40k_engine", "B_40k_no_engine")},
-               "B_12M": flagship["B_12M"]["launches"]}
+
+    # --- 12 the read lengths users sequence (2x150, 2x250, trimmed) -----
+    lengths = read_length_phase(dev, banded_dp, index)
+    lcs_runs = {"B": {"launches": launches, "launch_errors": real_err},
+                "B_mesh": mesh_rec["B_mesh"],
+                **{tag: nonative[tag]
+                   for tag in ("B_40k_engine", "B_40k_no_engine")},
+                "B_12M": flagship["B_12M"],
+                **{tag: lengths[tag]
+                   for tag in ("B_150", "T_150", "B_250", "B_40k_E16")}}
+    by_path = {tag: r["launches"] for tag, r in lcs_runs.items()}
+    at_shape = {"B": k_b, "B_12M": k_b12, "B_150": lengths["kernels_B_150"],
+                "B_250": lengths["kernels_B_250"],
+                "B_40k_E16": lengths["kernels_B_40k_E16"]}
 
     (WORK / "summary.json").write_text(json.dumps(
         {"nvidia_smi": smi, "A": res_a, "B": res_b, "C": res_c,
@@ -1362,29 +1601,29 @@ def main() -> int:
          "kernels_main": k_main, "kernels_B": k_b,
          "graph_40k": {"edges": g_dev.num_edges, "seconds": secs},
          "mesh": mesh_rec, "no_engine": nonative, "flagship": flagship,
-         "kernels_B_12M": k_b12},
+         "kernels_B_12M": k_b12, "read_lengths": lengths},
         indent=1))
 
     timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                   "shape")
     kernels = []
     for name, replaces in (("gather_planes", "banded_dp.py:69"),
-                           ("banded_lcs", "banded_dp.py:152")):
+                           ("banded_lcs", "banded_dp.py:152"),
+                           ("banded_lcs_wide", "banded_dp.py:152")):
         main = k_main[name]
+        shaped = {tag: k[name] for tag, k in at_shape.items() if name in k}
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCES[name],
             "replaces": f"alga_tpu/ops/pallas/{replaces}",
             "launches": sum(n[name] for n in by_path.values()),
             "launches_by_path": {p: n[name] for p, n in by_path.items()},
-            "max_abs_err": max(main["max_abs_err"], k_b[name]["max_abs_err"],
-                               k_b12[name]["max_abs_err"], real_err[name],
-                               mesh_rec["B_mesh"]["launch_errors"][name],
-                               *(nonative[f"B_40k_{t}"]["launch_errors"][name]
-                                 for t in ("engine", "no_engine")),
-                               flagship["B_12M"]["launch_errors"][name]),
+            "max_abs_err": max(
+                main["max_abs_err"],
+                *(r["max_abs_err"] for r in shaped.values()),
+                *(r["launch_errors"][name] for r in lcs_runs.values())),
             **{k: main[k] for k in timed_keys},
-            "at_B_shape": {k: k_b[name][k] for k in timed_keys},
-            "at_B_12M_shape": {k: k_b12[name][k] for k in timed_keys}})
+            **{f"at_{tag}_shape": {k: r[k] for k in timed_keys}
+               for tag, r in shaped.items()}})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

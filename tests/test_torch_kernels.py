@@ -21,14 +21,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _pairs(rng, n_reads, m, E):
-    """Pair-major words of m pairs of reads of 60-119 bases, read 2 a
-    noisy suffix of read 1, as banded_dp.banded_lcs takes them."""
-    lens = rng.integers(60, 120, n_reads)
-    codes = rng.integers(0, 4, (n_reads, 120)).astype(np.uint8)
+def _pairs(rng, n_reads, m, E, read_len=120):
+    """Pair-major words of m pairs of reads of read_len/2 to read_len - 1
+    bases, read 2 a noisy suffix of read 1, as banded_dp.banded_lcs takes
+    them."""
+    lens = rng.integers(read_len // 2, read_len, n_reads)
+    codes = rng.integers(0, 4, (n_reads, read_len)).astype(np.uint8)
     r1 = rng.integers(0, n_reads, m)
     r2 = (r1 + 1) % n_reads
-    offs = rng.integers(0, 60, m)
+    offs = rng.integers(0, read_len // 2, m)
     for a, o in zip(r1, offs):
         seg = codes[a, o:].copy()
         noise = rng.random(len(seg)) < 0.04
@@ -65,15 +66,24 @@ def test_gather_planes_kernel_matches_plain(W, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [3001, 270_337], ids=["small", "large"])
-@pytest.mark.parametrize("E", list(range(banded_dp.MAX_E + 1)))
-def test_banded_lcs_kernel_matches_plain(E, m, cuda_device):
-    """Every band half-width, at fewer pairs than the card has threads and
-    at more than it holds at once; reads of 60-119 bases (unequal, mostly
-    not a multiple of 16) at offsets 0-59."""
-    args = [a.to(cuda_device)
-            for a in _pairs(np.random.default_rng(E), 300, m, E)]
+@pytest.mark.parametrize("read_len", [120, 250])
+@pytest.mark.parametrize("E", list(range(banded_dp.MAX_E + 1))
+                         + [16, 24, 31, 63, 255])
+def test_banded_lcs_kernel_matches_plain(E, read_len, m, cuda_device):
+    """Every band half-width of the register-band kernel and band
+    half-widths of the wide one (E >= 16), at fewer pairs than the card
+    has threads and at more than it holds at once; reads of 60-119 and of
+    125-249 bases (unequal, mostly not a multiple of 16) at offsets up to
+    half their length.  Each launch counts under its kernel's name."""
+    args = [a.to(cuda_device) for a in _pairs(
+        np.random.default_rng(E), 300, m, E, read_len)]
     want = banded_dp.banded_lcs_batch(*args, E)
+    banded_dp.reset_launches()
     got = banded_dp.banded_lcs(*args, E)
+    torch.cuda.synchronize()
+    name = "banded_lcs" if E <= banded_dp.MAX_E else "banded_lcs_wide"
+    assert banded_dp.LAUNCHES[name] == 1
+    assert sum(banded_dp.LAUNCHES.values()) == 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
@@ -91,7 +101,8 @@ def test_align_banded_lcs_launches_each_kernel_once(cuda_device):
     banded_dp.reset_launches()
     got = align.banded_lcs(*(t.to(cuda_device) for t in
                              (packed, lengths, r1, r2, offs)), 3)
-    assert banded_dp.LAUNCHES == {"gather_planes": 1, "banded_lcs": 1}
+    assert banded_dp.LAUNCHES == {"gather_planes": 1, "banded_lcs": 1,
+                                  "banded_lcs_wide": 0}
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
@@ -99,8 +110,10 @@ def test_align_banded_lcs_launches_each_kernel_once(cuda_device):
 def test_kernels_refuse_bad_input(cuda_device):
     args = [a.to(cuda_device) for a in _pairs(np.random.default_rng(1),
                                               50, 100, 2)]
-    with pytest.raises(ValueError):
-        banded_dp.banded_lcs(*args, banded_dp.MAX_E + 1)
+    limit = banded_dp.max_band_half_width(args[0].shape[0])
+    with pytest.raises(ValueError, match=f"outside \\[0, {limit}\\]"):
+        banded_dp.banded_lcs(*args, limit + 1)
+    assert banded_dp.banded_lcs(*args, limit).shape == (100,)
     with pytest.raises(ValueError):
         banded_dp.banded_lcs(args[0].to(torch.int64), *args[1:], 2)
     idx = torch.zeros((2, 10), dtype=torch.int32, device=cuda_device)

@@ -166,23 +166,29 @@ def test_gather_planes_plain_matches_jax(rng, W, M):
     # the wrapper takes the plain version for a CPU tensor and counts no launch
     banded_dp.reset_launches()
     np.testing.assert_array_equal(banded_dp.gather_planes(*args).numpy(), want)
-    assert banded_dp.LAUNCHES == {"gather_planes": 0, "banded_lcs": 0}
+    assert banded_dp.LAUNCHES == {"gather_planes": 0, "banded_lcs": 0,
+                                  "banded_lcs_wide": 0}
 
 
 def test_align_banded_lcs_on_packed_table(rng):
     """The ACLCS entry: row gather + DP from the packed table equals the
-    oracle; band half-widths outside the kernel's range raise."""
+    oracle, at E = 2 and at E = 16 (the wide kernel's band on a card,
+    which alga_tpu runs through its XLA route); band half-widths past the
+    kernels' limit for the table's width raise, on the CPU as on a card."""
     codes, lens, _ = _random_reads(rng, 30, 50, 100)
     r1, r2, offs = _overlapping_pairs(rng, codes, 150, 0.04)
     packed = packing.codes_to_packed(codes, lens)
-    got = align.banded_lcs(_words(packed), _t(lens, torch.int32), _t(r1),
-                           _t(r2), _t(offs), 2)
-    want = [jalign.np_banded_lcs(codes, lens, a, b, int(o), 2)
-            for a, b, o in zip(r1, r2, offs)]
-    np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(ValueError):
-        align.banded_lcs(_words(packed), _t(lens, torch.int32), _t(r1),
-                         _t(r2), _t(offs), banded_dp.MAX_E + 1)
+    args = (_words(packed), _t(lens, torch.int32), _t(r1), _t(r2), _t(offs))
+    for E in (2, 16):
+        got = align.banded_lcs(*args, E)
+        want = [jalign.np_banded_lcs(codes, lens, a, b, int(o), E)
+                for a, b, o in zip(r1, r2, offs)]
+        np.testing.assert_array_equal(got.numpy(), want)
+    limit = banded_dp.max_band_half_width(packed.shape[1])
+    assert limit >= 255
+    for E in (-1, limit + 1):
+        with pytest.raises(ValueError, match=f"outside \\[0, {limit}\\]"):
+            align.banded_lcs(*args, E)
 
 
 @pytest.mark.parametrize("min_device_batch", [0, 10**9])

@@ -7,14 +7,17 @@ jax.  This test recomputes each digest here, with alga_tpu on the JAX CPU
 backend, on the datasets that chip_smoke.py builds: A and C through
 alga_tpu's CLI in-process (the CLI's configuration), B through
 alga_tpu.pipeline.assemble_to_file with chip_smoke.B_KW, all at 920k read
-slots; A_40k and B_40k as chip_smoke.py's phase 10 runs them.  When a
-recipe changes, the failure message prints the new digest.
+slots; A_40k and B_40k as chip_smoke.py's phase 10 runs them, and
+B_40k_E16 as its phase 12 does (B_40k's reads with a band half-width of
+16).  When a recipe changes, the failure message prints the new digest.
 
-    python -m pytest tests/test_torch_reference_digests.py -q   (~40 s)
+    python -m pytest tests/test_torch_reference_digests.py -q   (~1 min)
 
 The digests of alga_tpu's larger recipes (chip_smoke.FLAGSHIP: A_20M;
-chip_smoke.CONFIG3: B_12M and C_12M) take minutes and about 5 GB each, so
-they are marked slow and left out of `-m 'not slow'`:
+chip_smoke.CONFIG3: B_12M and C_12M) take minutes and about 5 GB each,
+and those of the read-length recipes (chip_smoke.NOVASEQ150: A_150,
+B_150, T_150; chip_smoke.MISEQ250: A_250, B_250) about two minutes
+together, so they are marked slow and left out of `-m 'not slow'`:
 
     python -m pytest tests/test_torch_reference_digests.py -q -m slow
 """
@@ -43,6 +46,14 @@ def large(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def read_lengths(tmp_path_factory):
+    """{set: paths} of the NOVASEQ150 and MISEQ250 recipes."""
+    out = tmp_path_factory.mktemp("read_lengths")
+    return {**chip_smoke.scale_datasets(out, **chip_smoke.NOVASEQ150)[1],
+            **chip_smoke.scale_datasets(out, **chip_smoke.MISEQ250)[1]}
+
+
+@pytest.fixture(scope="module")
 def reads_40k():
     """(clean, noisy) read lists of chip_smoke's 40k-read recipe."""
     reads = chip_smoke.bench_40k()[1]
@@ -66,7 +77,8 @@ def _run(case, scale, reads_40k, out):
             file1=b[0], file2=b[1], output=str(out), **chip_smoke.B_KW))
     else:
         seqs, kw = {"A_40k": (reads_40k[0], {}),
-                    "B_40k": (reads_40k[1], chip_smoke.B_KW)}[case]
+                    "B_40k": (reads_40k[1], chip_smoke.B_KW),
+                    "B_40k_E16": (reads_40k[1], chip_smoke.B_E16_KW)}[case]
         jpipeline.assemble_to_file(AssemblyConfig(output=str(out), **kw),
                                    file1_seqs=seqs)
     return chip_smoke.sha256_of(out)
@@ -78,7 +90,7 @@ def _same_digests(got: dict) -> None:
 
 
 @pytest.mark.parametrize("case", ["datasets", "A", "B", "C", "A_40k",
-                                  "B_40k"])
+                                  "B_40k", "B_40k_E16"])
 def test_reference_digest(request, tmp_path, case):
     if case == "datasets":
         a, b = request.getfixturevalue("scale")
@@ -137,6 +149,62 @@ def test_large_reference_digest(large, tmp_path, case):
         g = large["G"]
         jpipeline.assemble_to_file(AssemblyConfig(
             file1=g[0], file2=g[1], output=str(out), **chip_smoke.B_KW))
+        got = chip_smoke.sha256_of(out)
+    assert got == chip_smoke.REFERENCE_SHA256[case], (
+        f"alga_tpu's {case} FASTA has sha256 {got}")
+
+
+@pytest.mark.parametrize("trimmed", [False, True])
+def test_scale_datasets_read_length(tmp_path, trimmed):
+    """read_len and insert reach the draws (fragments genome_len *
+    coverage / (2 * read_len), mates of read_len bases), and a trimmed
+    set is its untrimmed twin with each mate's 3' end cut to
+    [read_len // 2, read_len] bases; adding a trimmed set leaves the
+    other sets' bytes as they were."""
+    kw = {"genome_len": 30_000, "coverage": 5, "seed": 9, "read_len": 150,
+          "insert": 400}
+    sets = (("X", True),) + ((("Y", True, True),) if trimmed else ())
+    _, paths, n = chip_smoke.scale_datasets(tmp_path, **kw, sets=sets)
+    assert n == 2 * 500
+    alone = chip_smoke.scale_datasets(tmp_path / "alone", **kw,
+                                      sets=(("X", True),))[1]
+    for m in range(2):
+        full = open(paths["X"][m], "rb").read()
+        assert full == open(alone["X"][m], "rb").read()
+        seqs = full.split(b"\n")[1::4]
+        assert {len(x) for x in seqs} == {150}
+        if trimmed:
+            cut = open(paths["Y"][m], "rb").read().split(b"\n")
+            assert [q for q in cut[3::4]] == [b"I" * len(x)
+                                              for x in cut[1::4]]
+            cut = cut[1::4]
+            assert all(x.startswith(y) for x, y in zip(seqs, cut))
+            lens = [len(y) for y in cut]
+            assert min(lens) == 75 and max(lens) == 150
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", ["datasets", "A_150", "B_150", "T_150",
+                                  "A_250", "B_250"])
+def test_read_length_reference_digest(read_lengths, tmp_path, case):
+    """NOVASEQ150's and MISEQ250's FASTQ files through alga_tpu's CLI (A)
+    and through assemble_to_file with B_KW (B, T), with alga_tpu's ACLCS
+    pair counts in the B runs."""
+    if case == "datasets":
+        got = chip_smoke.dataset_digests(*read_lengths.values())
+        assert len(got) == 10
+        _same_digests(got)
+        return
+    out = tmp_path / f"{case}.fasta"
+    paths = read_lengths[case.replace("_", "")]
+    if case.startswith("A"):
+        got = _cli(paths, out)
+    else:
+        res = jpipeline.assemble_to_file(AssemblyConfig(
+            file1=paths[0], file2=paths[1], output=str(out),
+            **chip_smoke.B_KW))
+        want = chip_smoke.ACH_READ_LENGTHS[case]
+        assert {k: res.stats["counters"].get(k, 0) for k in want} == want
         got = chip_smoke.sha256_of(out)
     assert got == chip_smoke.REFERENCE_SHA256[case], (
         f"alga_tpu's {case} FASTA has sha256 {got}")
