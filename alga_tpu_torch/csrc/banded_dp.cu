@@ -23,9 +23,10 @@
 //   of the table.
 //
 // K2 banded_lcs: in banded_lcs.cu, built once per band half-width E =
-// 0..15, and for E >= 16 in banded_lcs_wide.cu (E a runtime argument); the
-// switch in alga_banded_lcs below picks the instantiation or the wide
-// kernel by E alone.
+// 0..15, and for E >= 16 in banded_lcs_wide.cu (E a runtime argument),
+// built once per cells-per-lane K; the switch in alga_banded_lcs below
+// picks the instantiation by E, and for E >= 16 the wide kernel's by the
+// caller's K (with its lanes per pair, ops/banded_dp.py:wide_shape).
 
 #include <cuda_runtime.h>
 
@@ -54,9 +55,10 @@ template <int E>
 int launch_lcs(const int* w1T, const int* w2T, int W, long long M,
                const int* len1, const int* len2, const int* offsets,
                int* out, cudaStream_t s);
+template <int K>
 int launch_lcs_wide(const int* w1T, const int* w2T, int W, long long M,
                     const int* len1, const int* len2, const int* offsets,
-                    int E, int* out, cudaStream_t s);
+                    int E, int g, int* out, cudaStream_t s);
 }  // namespace alga_k2
 
 extern "C" {
@@ -76,9 +78,16 @@ int alga_gather_planes(const int* packed, const int* lengths, long long N,
     return alga_k2::launch_lcs<e>(w1T, w2T, W, M, len1, len2, offsets,    \
                                   out, s);
 
+#define ALGA_LCS_WIDE_CASE(k)                                             \
+  case k:                                                                 \
+    return alga_k2::launch_lcs_wide<k>(w1T, w2T, W, M, len1, len2,        \
+                                       offsets, E, lanes, out, s);
+
+// E >= 16 takes `lanes` lanes per pair and `cells` cells a lane, one of
+// ops/banded_dp.py:WIDE_CELLS; E = 0..15 ignores both
 int alga_banded_lcs(const int* w1T, const int* w2T, int W, long long M,
                     const int* len1, const int* len2, const int* offsets,
-                    int E, int* out, void* stream) {
+                    int E, int lanes, int cells, int* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (E) {
     ALGA_LCS_CASE(0) ALGA_LCS_CASE(1) ALGA_LCS_CASE(2) ALGA_LCS_CASE(3)
@@ -86,8 +95,18 @@ int alga_banded_lcs(const int* w1T, const int* w2T, int W, long long M,
     ALGA_LCS_CASE(8) ALGA_LCS_CASE(9) ALGA_LCS_CASE(10) ALGA_LCS_CASE(11)
     ALGA_LCS_CASE(12) ALGA_LCS_CASE(13) ALGA_LCS_CASE(14) ALGA_LCS_CASE(15)
     default:
-      return alga_k2::launch_lcs_wide(w1T, w2T, W, M, len1, len2, offsets,
-                                      E, out, s);
+      break;
+  }
+  switch (cells) {
+    ALGA_LCS_WIDE_CASE(1) ALGA_LCS_WIDE_CASE(2) ALGA_LCS_WIDE_CASE(3)
+    ALGA_LCS_WIDE_CASE(4) ALGA_LCS_WIDE_CASE(5) ALGA_LCS_WIDE_CASE(6)
+    ALGA_LCS_WIDE_CASE(8) ALGA_LCS_WIDE_CASE(10) ALGA_LCS_WIDE_CASE(12)
+    ALGA_LCS_WIDE_CASE(14) ALGA_LCS_WIDE_CASE(16) ALGA_LCS_WIDE_CASE(17)
+    ALGA_LCS_WIDE_CASE(20) ALGA_LCS_WIDE_CASE(24) ALGA_LCS_WIDE_CASE(28)
+    ALGA_LCS_WIDE_CASE(32) ALGA_LCS_WIDE_CASE(40) ALGA_LCS_WIDE_CASE(48)
+    ALGA_LCS_WIDE_CASE(56) ALGA_LCS_WIDE_CASE(64)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (alga_tpu_torch/csrc/*.cu).
 
 On first use nvcc compiles the sources for sm_90a into a shared library
-with a plain C interface, which ctypes loads: banded_dp.cu and
-banded_lcs_wide.cu once and banded_lcs.cu once per band half-width
-0..MAX_E, all at once, one nvcc process each, then one link.  The
+with a plain C interface, which ctypes loads: banded_dp.cu once,
+banded_lcs.cu once per band half-width 0..MAX_E and banded_lcs_wide.cu
+once per cells-per-lane of WIDE_CELLS, all at once, one nvcc process
+each, then one link.  The
 library goes into alga_tpu_torch/_build/ (listed in .gitignore) under a
 name that carries a hash of the sources, so an edited source is
 rebuilt.  Nothing is built when the module is imported: the CPU tests
@@ -52,7 +53,7 @@ def _run(cmd: list) -> str:
 
 def build() -> Path:
     """Path of the kernel library, compiling it first when missing."""
-    from alga_tpu_torch.ops.banded_dp import MAX_E
+    from alga_tpu_torch.ops.banded_dp import MAX_E, WIDE_CELLS
     srcs = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha256(
         b"".join(p.name.encode() + p.read_bytes() for p in srcs)).hexdigest()
@@ -61,10 +62,11 @@ def build() -> Path:
         return so
     objdir = _BUILD / f"obj_{digest[:16]}_{os.getpid()}"
     objdir.mkdir(parents=True, exist_ok=True)
-    units = [(_CSRC / f"{name}.cu", [], objdir / f"{name}.o")
-             for name in ("banded_dp", "banded_lcs_wide")]
+    units = [(_CSRC / "banded_dp.cu", [], objdir / "banded_dp.o")]
     units += [(_CSRC / "banded_lcs.cu", [f"-DALGA_LCS_E={e}"],
                objdir / f"banded_lcs_{e}.o") for e in range(MAX_E + 1)]
+    units += [(_CSRC / "banded_lcs_wide.cu", [f"-DALGA_LCS_WIDE_K={k}"],
+               objdir / f"banded_lcs_wide_{k}.o") for k in WIDE_CELLS]
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
@@ -91,7 +93,8 @@ def lib():
     L.alga_gather_planes.restype = i32
     L.alga_gather_planes.argtypes = [p, p, i64, i32, p, i64, p, p]
     L.alga_banded_lcs.restype = i32
-    L.alga_banded_lcs.argtypes = [p, p, i32, i64, p, p, p, i32, p, p]
+    L.alga_banded_lcs.argtypes = [p, p, i32, i64, p, p, p, i32, i32, i32,
+                                  p, p]
     L.alga_cuda_error_string.restype = ctypes.c_char_p
     L.alga_cuda_error_string.argtypes = [i32]
     _lib = L

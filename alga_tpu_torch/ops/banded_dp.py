@@ -9,8 +9,9 @@
                  ACLCS banded LCS of pairs whose words are laid out
                  pair-major ([W, M]).  Band half-widths 0..MAX_E run the
                  register-band kernel (csrc/banded_lcs.cu), wider ones
-                 the shared-memory band kernel (csrc/banded_lcs_wide.cu),
-                 which stands in for alga_tpu's XLA route for 2E+1 > 16.
+                 the lane kernel (csrc/banded_lcs_wide.cu: g lanes a
+                 pair, each row a prefix max across them), which stands
+                 in for alga_tpu's XLA route for 2E+1 > 16.
 
 The kernels are in csrc/banded_dp.cu (K1, and the C interface of all
 three), csrc/banded_lcs.cu and csrc/banded_lcs_wide.cu (K2).  Each
@@ -22,15 +23,19 @@ launches, the two K2 kernels under their own names.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from alga_tpu_torch.ops.bitops import M32
 
 MAX_E = 15      # band half-widths 0..MAX_E are instantiated in K2
-# the wide kernel's shared memory: a block of at least 32 pairs, each with
-# its two staged word streams and its band, within a block's 227 KB
-SMEM_LIMIT = 232_448
-WIDE_MIN_THREADS = 32
+# the wide kernel (E > MAX_E): lanes per pair, and the row cells a lane
+# holds in registers (csrc/banded_lcs_wide.cu is built once for each)
+WIDE_LANES = (2, 4, 8, 16, 32)
+WIDE_CELLS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 14, 16, 17, 20, 24, 28, 32, 40,
+              48, 56, 64)
+WIDE_FILL = 32     # threads per SM the lane choice gives the card at least
 
 LAUNCHES = {"gather_planes": 0, "banded_lcs": 0, "banded_lcs_wide": 0}
 
@@ -124,81 +129,107 @@ def _unpack_words(wT: torch.Tensor) -> torch.Tensor:
 
 def banded_lcs_batch(w1T, w2T, len1, len2, offsets, E: int = 2):
     """int32[M]: the banded LCS of ACLCS::calculateLCS (ref
-    AlignmentControllerLCS.cpp:61-150), the row loop of
-    alga_tpu/ops/align.py:banded_lcs_batch on [M, B] tensors: rows p in
-    [max(0, off-E), len1), band q in [p-off-E, p-off+E] clipped to
-    [0, len2); result cell p* = min(len1-1, len2-1+off),
-    q* = min(len2-1, p*-off+E)."""
+    AlignmentControllerLCS.cpp:61-150), alga_tpu/ops/align.py:
+    banded_lcs_batch's row scan: rows p in [max(0, off-E), len1), band q
+    in [p-off-E, p-off+E] clipped to [0, len2); result cell
+    p* = min(len1-1, len2-1+off), q* = min(len2-1, p*-off+E).
+
+    Each row is computed as the wide kernel computes it: a[d] = diag + 1
+    at a match, else up, over the whole row at once; then the row is the
+    running max of a (`torch.cummax`), which is the `left` term (at a
+    match left never exceeds diag + 1).  Cells outside the band or the
+    read are 0, as in alga_tpu.  The row holds the band's 2E+1 cells
+    (q = p-off-E+d), or, when the band is wider than the packed read
+    (2E+1 > 16W), the read's 16W cells (q = d)."""
     c1 = _unpack_words(w1T)
     c2 = _unpack_words(w2T)
     M, L = c1.shape
-    B = 2 * E + 1
+    dev = w1T.device
     len1 = len1.to(torch.int64)
     len2 = len2.to(torch.int64)
     off = offsets.to(torch.int64)
+    row_frame = 2 * E + 1 > L
+    C = L if row_frame else 2 * E + 1
     p_beg = (off - E).clamp(min=0)
     p_star = torch.minimum(len1 - 1, len2 - 1 + off)
     q_star = torch.minimum(len2 - 1, p_star - off + E)
-    prev = torch.zeros((M, B), dtype=torch.int64, device=w1T.device)
-    if M == 0:
-        return prev[:, 0].to(torch.int32)
-    band = torch.arange(-E, E + 1, device=w1T.device)[None, :]
-    zero = torch.zeros(M, dtype=torch.int64, device=w1T.device)
-    for p in range(min(L, int(p_star.max()) + 1)):
-        q_of = p - off[:, None] + band                      # [M, B]
-        in_row = (p >= p_beg) & (p <= p_star) & (p < len1)
-        q_valid = (q_of >= 0) & (q_of < len2[:, None]) & in_row[:, None]
-        a = c1[:, p]
-        b = c2.gather(1, q_of.clamp(0, L - 1))
-        match = (a[:, None] == b) & q_valid
-        left = zero
-        cols = []
-        for e in range(B):
-            up = prev[:, e + 1] if e + 1 < B else zero
-            val = torch.where(match[:, e], prev[:, e] + 1,
-                              torch.maximum(up, left))
-            val = torch.where(q_valid[:, e], val, 0)
-            left = val
-            cols.append(val)
-        prev = torch.where(in_row[:, None], torch.stack(cols, 1), prev)
-    e_star = (q_star - (p_star - off) + E).clamp(0, B - 1)
-    return prev.gather(1, e_star[:, None])[:, 0].to(torch.int32)
+    if M == 0 or C == 0:
+        return torch.zeros(M, dtype=torch.int32, device=dev)
+    prev = torch.zeros((M, C), dtype=torch.int32, device=dev)
+    cols = torch.arange(C, device=dev)[None, :]
+    zero = torch.zeros((M, 1), dtype=torch.int32, device=dev)
+    for p in range(int(p_beg.min()), min(L, int(p_star.max()) + 1)):
+        in_row = (p >= p_beg) & (p <= p_star)
+        q_lo = (p - off - E)[:, None]                   # the band's first q
+        q = cols.expand(M, C) if row_frame else q_lo + cols
+        valid = ((q >= 0) & (q < len2[:, None]) & (q >= q_lo)
+                 & (q <= q_lo + 2 * E))
+        match = (c1[:, p, None] == c2.gather(1, q.clamp(0, L - 1))) & valid
+        if row_frame:                                   # up keeps d
+            up, diag = prev, torch.cat([zero, prev[:, :-1]], 1)
+        else:                                           # up is d + 1
+            up, diag = torch.cat([prev[:, 1:], zero], 1), prev
+        a = torch.where(match, diag + 1, torch.where(valid, up, 0))
+        row = torch.where(valid, torch.cummax(a, 1).values, 0)
+        prev = torch.where(in_row[:, None], row, prev)
+    # a pair without rows, or with q* < 0 (len2 = 0), reads a cell of 0
+    d_star = q_star if row_frame else q_star - (p_star - off - E)
+    return prev.gather(1, d_star.clamp(0, C - 1)[:, None])[:, 0]
 
 
-def wide_smem_words(W: int, E: int) -> int:
-    """32-bit words of shared memory the wide kernel takes a pair:
-    stream 1 (W words), stream 2 (W + ceil((2E+1)/16) words) and the band
-    (2E+2 cells).  csrc/banded_lcs_wide.cu computes the same."""
-    B = 2 * E + 1
-    return 2 * W + (B + 15) // 16 + B + 1
+def wide_shape(W: int, E: int, M: int, lanes: int | None = None,
+               n_sm: int = 132) -> tuple[int, int]:
+    """(g, k) of a wide-kernel launch: g lanes per pair (WIDE_LANES), k
+    row cells per lane (WIDE_CELLS), g * k >= the row's cells, which are
+    min(2E+1, 16W) and do not grow with E past the read.  Without
+    `lanes`, g is the fewest lanes that hold the row and give the n_sm
+    SMs a warp each (M * g >= WIDE_FILL * n_sm), else the most: each lane
+    more a pair adds its scan and its row overhead, which cost more than
+    the latency they hide down to ~1 warp an SM (on an H100 at E = 16,
+    2 lanes were fastest at 2^18, 17,067 and 4,888 pairs; chip_smoke.py
+    times every lane count).  Raises when no (g, k) holds the row (reads
+    of more than 2048 bases at E > 1023)."""
+    cells = max(1, min(2 * E + 1, 16 * W))
+
+    def k_for(g):
+        return next((k for k in WIDE_CELLS if g * k >= cells), None)
+    if lanes is not None:
+        if lanes not in WIDE_LANES or k_for(lanes) is None:
+            raise ValueError(f"banded_lcs: {lanes} lanes per pair cannot "
+                             f"hold a row of {cells} cells (lanes "
+                             f"{WIDE_LANES}, at most {WIDE_CELLS[-1]} cells "
+                             "a lane)")
+        return lanes, k_for(lanes)
+    fits = [g for g in WIDE_LANES if k_for(g) is not None]
+    if not fits:
+        raise ValueError(f"banded_lcs: a row of {cells} cells (E={E}, "
+                         f"W={W}) is longer than the wide kernel holds, "
+                         f"{WIDE_LANES[-1] * WIDE_CELLS[-1]} cells")
+    g = next((g for g in fits if M * g >= WIDE_FILL * n_sm), fits[-1])
+    return g, k_for(g)
 
 
-def max_band_half_width(W: int) -> int:
-    """The widest band half-width banded_lcs takes for words of width W:
-    the wide kernel's block of WIDE_MIN_THREADS pairs must fit SMEM_LIMIT
-    (823 at W = 32, reads of 512 bases)."""
-    words = SMEM_LIMIT // (4 * WIDE_MIN_THREADS)
-    lo, hi = -1, words
-    while lo < hi:                     # wide_smem_words grows with E
-        mid = (lo + hi + 1) // 2
-        if wide_smem_words(W, mid) <= words:
-            lo = mid
-        else:
-            hi = mid - 1
-    return lo
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def banded_lcs(w1T, w2T, len1, len2, offsets, E: int = 2) -> torch.Tensor:
+def banded_lcs(w1T, w2T, len1, len2, offsets, E: int = 2, *,
+               _lanes: int | None = None) -> torch.Tensor:
     """int32[M]: banded LCS of M pairs given pair-major words int32[W, M]
-    of both reads, their lengths and offsets (int32[M]).  E is checked
-    against the kernels' limit (max_band_half_width) on every device, so
-    a band the card refuses is refused on the CPU too."""
-    e_max = max_band_half_width(w1T.shape[0])
-    if not 0 <= E <= e_max:
-        raise ValueError(f"banded_lcs: band half-width E={E} is outside "
-                         f"[0, {e_max}], the kernels' limit for words of "
-                         f"width W={w1T.shape[0]}")
-    if not _on_gpu("banded_lcs", w1T, w2T, len1, len2, offsets):
+    of both reads, their lengths and offsets (int32[M]), at any band
+    half-width E >= 0.  `_lanes` forces the wide kernel's lanes per pair
+    (E > MAX_E; for tests and chip_smoke.py).  The wide kernel's shape
+    (wide_shape) is checked on every device, so a row the card cannot
+    hold is refused on the CPU too."""
+    if E < 0:
+        raise ValueError(f"banded_lcs: band half-width E={E} < 0")
+    gpu = _on_gpu("banded_lcs", w1T, w2T, len1, len2, offsets)
+    g = k = 0
+    if E > MAX_E:
+        g, k = wide_shape(w1T.shape[0], E, w1T.shape[-1], _lanes,
+                          _sm_count(w1T.device.index) if gpu else 132)
+    if not gpu:
         return banded_lcs_batch(w1T, w2T, len1, len2, offsets, E)
     for name, t, nd in (("w1T", w1T, 2), ("w2T", w2T, 2), ("len1", len1, 1),
                         ("len2", len2, 1), ("offsets", offsets, 1)):
@@ -215,7 +246,7 @@ def banded_lcs(w1T, w2T, len1, len2, offsets, E: int = 2) -> torch.Tensor:
     with torch.cuda.device(w1T.device):
         rc = _cuda.lib().alga_banded_lcs(
             w1T.data_ptr(), w2T.data_ptr(), W, M, len1.data_ptr(),
-            len2.data_ptr(), offsets.data_ptr(), E, out.data_ptr(),
+            len2.data_ptr(), offsets.data_ptr(), E, g, k, out.data_ptr(),
             _stream(w1T.device))
     name = "banded_lcs" if E <= MAX_E else "banded_lcs_wide"
     _cuda.check(rc, name)

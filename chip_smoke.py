@@ -14,16 +14,24 @@ Phases; any failure ends the run with a non-zero exit code:
   3 kernels  each CUDA kernel against its plain PyTorch version on the card,
              exact integer equality (K2 at E = 1, 2, 3, 7, and on pairs
              of unequal lengths at E = 0, 1, 2, 3, 7, 15; here also the
-             wide K2 kernel at E = 16, 24, 31, 63 on both, and pairs of
-             250-base reads at E = 2, 15, 16, 63), at the large shape (K1:
-             a 920k-row table, 2^20 indices; K2: 2^18 pairs of 100 bp) here,
-             and at configuration B's own (the median table rows and pairs
-             per launch that phase 6 logs) after phase 6.  Device
-             milliseconds of each kernel (a CUDA graph of 20 launches), of
-             its plain version and of the one library call that computes
-             the same gather (K1: index_select), the bound (the least time
-             for the bytes or the integer operations the inputs need, from
-             H100 SXM peaks) and the kernel's share of it.
+             wide K2 kernel at E = 16, 24, 31, 63, one past the widest
+             band of its earlier shared-memory design for the pairs' width
+             (848, 847, 839), 1,000 and 10,000 on both and on pairs of
+             250-base reads (with E = 2, 15), and at E = 16-63 and 848 on
+             pairs aligned along the band's edges, each with the lanes per
+             pair the launch picks and forced to every count that holds
+             the row), at the large shape (K1: a 920k-row table, 2^20 indices;
+             K2: 2^18 pairs of 100 bp) here, and at configuration B's own
+             (the median table rows and pairs per launch that phase 6
+             logs) after phase 6.  Device milliseconds of each kernel (a
+             CUDA graph of 20 launches; the wide one at E = 16, 63 and
+             1,000, and at every lane count), of its plain version and of
+             the one library call that computes the same gather (K1:
+             index_select), the bound (the least time for the bytes or the
+             integer operations the inputs need, from H100 SXM peaks; K2
+             counts the band's cells inside read 2, and logs the count of
+             every row's 2E+1 cells beside it) and the kernel's share of
+             it.
   4 graph    configuration A's graph on the bench's 40k-read dataset by
              the fused device path (ALGA_GCPS_DEVICE=small, and
              device_join.gcps_graph_device called directly), the blocked
@@ -125,8 +133,10 @@ Phases; any failure ends the run with a non-zero exit code:
              version on its own inputs, alga_tpu's sha256 and
              ach_lcs_alignments; then phase 3's kernel checks and times at
              B-150's and B-250's median launch shapes.  B_40k_E16: phase
-             10's noisy 40k reads with B_KW and max_error_rate_for_lcs=16,
-             the wide K2 kernel once per LCS batch, every launch exact,
+             10's noisy 40k reads with B_E16_KW (B_KW and
+             max_error_rate_for_lcs=16); B-E16: B's 920k-slot reads with
+             B_E16_KW.  Each: the wide K2 kernel once per LCS batch,
+             every launch exact, and exact again re-run at E = 1,000,
              alga_tpu's sha256, the kernel timed at its median launch.
              Phase seconds, file reads/s, contigs and peak device memory of
              each run.
@@ -134,8 +144,8 @@ Phases; any failure ends the run with a non-zero exit code:
 Phases 7, 8 and 9 compare their FASTA with phases 5, 6 and 6c, so every
 assembly of the run is held byte for byte against alga_tpu's output.
 The kernels' launch counts are those of phases 6, 9c, 10's two B runs,
-11's B-12M and 12's B-150, T-150, B-250 and B_40k_E16 together (each
-counted from 0 just before its run).  The last three lines of standard
+11's B-12M and 12's B-150, T-150, B-250, B_40k_E16 and B-E16 together
+(each counted from 0 just before its run).  The last three lines of standard
 output are the card's nvidia-smi line, the kernels' JSON record and the
 result line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Datasets and logs go to build/chip_smoke/ in the checkout.
@@ -167,8 +177,15 @@ ERR_RATE = 0.02
 KERNEL_SOURCES = {"gather_planes": "alga_tpu_torch/csrc/banded_dp.cu",
                   "banded_lcs": "alga_tpu_torch/csrc/banded_lcs.cu",
                   "banded_lcs_wide": "alga_tpu_torch/csrc/banded_lcs_wide.cu"}
-# the band half-widths phase 3 checks the wide K2 kernel at
+# the band half-widths phase 3 checks the wide K2 kernel at, with one
+# past the widest band its shared-memory design took for reads of W words
+# (SMEM_BAND_LIMIT[W]: 847, 846, 838 for the 100 bp, ragged and 250 bp
+# pairs) and two far past the reads (the row frame); it is timed at
+# WIDE_TIMED on the 100 bp pairs
 WIDE_E = (16, 24, 31, 63)
+SMEM_BAND_LIMIT = {7: 847, 8: 846, 16: 838}
+FAR_E = (1000, 10_000)
+WIDE_TIMED = (16, 63, 1000)
 
 # the configurations beside A (the default run): B runs the ACLCS fallback
 # (both kernels), C is the CLI's `--error-rate 0.02` (ACLER only)
@@ -205,8 +222,8 @@ MISEQ250 = {"genome_len": GENOME_LEN, "coverage": 30, "seed": SEED,
 # A_40k and B_40k as phase 10 runs them (bench_40k's reads, single-end);
 # A_20M, B_12M and C_12M the same three runs on the FLAGSHIP (A) and
 # CONFIG3 (B, C) recipes; A_150, B_150, T_150 on NOVASEQ150 and A_250,
-# B_250 on MISEQ250 (A through the CLI, B and T with B_KW); B_40k_E16 as
-# phase 12 runs it (B_40k with B_E16_KW).  The card has no jax, so they
+# B_250 on MISEQ250 (A through the CLI, B and T with B_KW); B_40k_E16 and
+# B_E16 as phase 12 runs them (B_40k's and B's reads with B_E16_KW).  The card has no jax, so they
 # are constants here; re-derive them with `python -m pytest
 # tests/test_torch_reference_digests.py` (add `-m slow` for the large and
 # read-length ones), which holds them against alga_tpu, whenever a recipe
@@ -235,6 +252,8 @@ REFERENCE_SHA256 = {
         "fd15bab8199be2eff4717c53e99b40841f26f839f009f6c67437716cd5da9674",
     "B_40k_E16":
         "f01ba48f0f3212c7ec6e048a6319a40db0f0ad19ad927ab59b60a80f821bd3b9",
+    "B_E16":
+        "0cccc54b96ab7e88839f96bcc1b37fb2604904991db57ff33984da9f8ce6d492",
 }
 # sha256 of the inputs those runs read: scale_datasets()'s FASTQ files (with
 # its defaults, FLAGSHIP, CONFIG3, NOVASEQ150 and MISEQ250) and
@@ -373,21 +392,67 @@ def k1_bound(packed, idx):
 
 
 def k2_bound(w1T, len1, len2, off, E, n_sm):
-    """(ms, kind): the larger of LCS_OPS_PER_CELL integer operations per
-    band cell these pairs need (rows p_beg..p* times 2E+1) at the card's
-    INT32 rate, and their words, lengths, offsets and result moved once."""
+    """(ms, kind, band_ms): the larger of LCS_OPS_PER_CELL integer
+    operations per cell the recurrence needs for these pairs (per row
+    p_beg..p*, the band's cells with 0 <= q < len2) at the card's INT32
+    rate, and their words, lengths, offsets and result moved once;
+    band_ms counts every row's 2E+1 cells instead, the count used until
+    the band was clipped to the reads."""
     import torch
     W, M = w1T.shape
     l1 = len1.long().clamp(max=16 * W)
     l2 = len2.long().clamp(max=16 * W)
     o = off.long()
-    rows = (torch.minimum(l1 - 1, l2 - 1 + o) - (o - E).clamp(min=0) + 1)
-    cells = int(rows.clamp(min=0).sum()) * (2 * E + 1)
-    ops_ms = 1e3 * LCS_OPS_PER_CELL * cells / (
-        n_sm * INT32_LANES_PER_SM * SM_CLOCK_HZ)
+    p_beg = (o - E).clamp(min=0)
+    p_star = torch.minimum(l1 - 1, l2 - 1 + o)
+    rows = (p_star - p_beg + 1).clamp(min=0)
+    cells = torch.zeros((), dtype=torch.int64, device=w1T.device)
+    for p in range(int(p_beg.min()), int(p_star.max()) + 1):
+        lo = (p - o - E).clamp(min=0)
+        hi = torch.minimum(l2 - 1, p - o + E)
+        in_row = (p >= p_beg) & (p <= p_star)
+        cells += ((hi - lo + 1).clamp(min=0) * in_row).sum()
+    rate = n_sm * INT32_LANES_PER_SM * SM_CLOCK_HZ
+    ops_ms = 1e3 * LCS_OPS_PER_CELL * int(cells) / rate
+    band_ms = 1e3 * LCS_OPS_PER_CELL * int(rows.sum()) * (2 * E + 1) / rate
     bytes_ms = 1e3 * 4 * (2 * W + 4) * M / HBM_BYTES_PER_S
-    return ((ops_ms, "operations") if ops_ms >= bytes_ms
-            else (bytes_ms, "bytes"))
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", max(band_ms, bytes_ms)
+    return bytes_ms, "bytes", max(band_ms, bytes_ms)
+
+
+def wide_lanes_ms(banded_dp, args, E, n_sm) -> dict:
+    """{lanes: device ms} of the wide kernel at each lane count that holds
+    the row (banded_dp.WIDE_LANES), beside the launch's own choice
+    ("auto": its lanes and cells)."""
+    W, M = args[0].shape
+    g, k = banded_dp.wide_shape(W, E, M, n_sm=n_sm)
+    out = {"auto": f"{g} lanes x {k} cells"}
+    for lanes in banded_dp.WIDE_LANES:
+        try:
+            banded_dp.wide_shape(W, E, M, lanes)
+        except ValueError:
+            continue
+        out[lanes] = graph_ms(lambda: banded_dp.banded_lcs(
+            *args, E, _lanes=lanes))
+    return out
+
+
+def k2_record(banded_dp, args, E, n_sm, shape: str, err: int,
+              plain_reps: int = 3) -> dict:
+    """The K2 kernel's record at one shape: device ms, plain ms, bound
+    (and the bound under the count of every row's 2E+1 cells), and for
+    the wide kernel the time at every lane count."""
+    bound, kind, band = k2_bound(args[0], *args[2:5], E, n_sm)
+    res = {"shape": shape, "max_abs_err": err, "bound_ms": bound,
+           "bound_by": kind, "bound_ms_rows_x_band": band,
+           "plain_ms": median_ms(
+               lambda: banded_dp.banded_lcs_batch(*args[:5], E), plain_reps),
+           "library_ms": None,
+           "ms": graph_ms(lambda: banded_dp.banded_lcs(*args[:5], E))}
+    if E > banded_dp.MAX_E:
+        res["ms_by_lanes"] = wide_lanes_ms(banded_dp, args[:5], E, n_sm)
+    return res
 
 
 def kernel_phase(dev, banded_dp, tag, n_rows, m_k1, m_k2,
@@ -442,33 +507,51 @@ def kernel_phase(dev, banded_dp, tag, n_rows, m_k1, m_k2,
     checks = [(f"{read_len} bp", pairs, (1, 2, 3, 7)),
               ("ragged", ragged, (0, 1, 2, 3, 7, 15))]
     if wide:
-        checks += [(f"{read_len} bp", pairs, WIDE_E),
-                   ("ragged", ragged, WIDE_E),
-                   ("250 bp", lcs_pairs(m_k2, 3, dev, 250), (2, 15, 16, 63))]
+        p250 = lcs_pairs(m_k2, 3, dev, 250)
+        checks += [(name, args, WIDE_E + (
+            SMEM_BAND_LIMIT[args[0].shape[0]] + 1,) + FAR_E)
+            for name, args in ((f"{read_len} bp", pairs), ("ragged", ragged),
+                               ("250 bp", p250))]
+        checks.append(("250 bp", p250, (2, 15)))
+        # pairs aligned along the band's edges, where the masks decide
+        checks += [(f"{read_len} bp band-edge", lcs_pairs(
+            m_k2 // 4, 4 + E, dev, read_len, edge=E), (E,))
+            for E in WIDE_E + (SMEM_BAND_LIMIT[pairs[0].shape[0]] + 1,)]
     errs = {"banded_lcs": 0, "banded_lcs_wide": 0}
     checked = [(name, Es) for name, _, Es in checks]
+    forced = 0
     for name, args, Es in checks:
         for E in Es:
-            err = int((banded_dp.banded_lcs(*args, E).long()
-                       - banded_dp.banded_lcs_batch(*args, E).long())
-                      .abs().max())
-            if err != 0:
-                fail(f"{tag}: banded_lcs (E={E}, {name} pairs) differs "
-                     f"from its plain version ({err})")
-            k = "banded_lcs" if E <= banded_dp.MAX_E else "banded_lcs_wide"
-            errs[k] = max(errs[k], err)
+            want = banded_dp.banded_lcs_batch(*args, E)
+            runs = [None]
+            if E > banded_dp.MAX_E:      # and every lane count that fits
+                runs += [g for g in banded_dp.WIDE_LANES
+                         if g * banded_dp.WIDE_CELLS[-1]
+                         >= min(2 * E + 1, 16 * args[0].shape[0])]
+            for lanes in runs:
+                err = int((banded_dp.banded_lcs(*args, E, _lanes=lanes)
+                           .long() - want.long()).abs().max())
+                if err != 0:
+                    fail(f"{tag}: banded_lcs (E={E}, {name} pairs, lanes "
+                         f"{lanes or 'auto'}) differs from its plain "
+                         f"version ({err})")
+                k = ("banded_lcs" if E <= banded_dp.MAX_E
+                     else "banded_lcs_wide")
+                errs[k] = max(errs[k], err)
+                forced += lanes is not None
+            del want
+    if wide:
+        log(f"{tag}: the wide kernel exact at every E on each pair set, "
+            f"with its own lane count and {forced} forced ones")
     del ragged, checks
-    for name, E in [("banded_lcs", 2)] + [("banded_lcs_wide", 16)] * wide:
-        bound, kind = k2_bound(pairs[0], *pairs[2:], E, n_sm)
-        res = {"shape": f"{m_k2} pairs of {read_len} bp, E={E}",
-               "max_abs_err": errs[name], "bound_ms": bound,
-               "bound_by": kind,
-               "plain_ms": median_ms(
-                   lambda: banded_dp.banded_lcs_batch(*pairs, E),
-                   5 if E == 2 else 3),
-               "library_ms": None}
-        res["ms"] = graph_ms(lambda: banded_dp.banded_lcs(*pairs, E))
-        out[name] = res
+    # keys: each kernel at its first E, the wide one also "@E<E>" after
+    timed = [("banded_lcs", 2)] + [("banded_lcs_wide", E)
+                                   for E in WIDE_TIMED] * wide
+    for name, E in timed:
+        res = k2_record(banded_dp, pairs, E, n_sm,
+                        f"{m_k2} pairs of {read_len} bp, E={E}", errs[name],
+                        5 if E == 2 else 3)
+        out[name if E in (2, WIDE_TIMED[0]) else f"{name}@E{E}"] = res
         log(f"K2 {name} at {tag} shape ({res['shape']}; exact at E = "
             + "; ".join(f"{n}: {','.join(map(str, Es))}"
                         for n, Es in checked) + "): "
@@ -755,19 +838,29 @@ class GenomeIndex:
         return hits / max(total, 1)
 
 
-def lcs_pairs(m: int, seed: int, dev, read_len: int = READ_LEN):
+def lcs_pairs(m: int, seed: int, dev, read_len: int = READ_LEN,
+              edge: int | None = None):
     """Pair-major words of m pairs of read_len-base reads: read 2 is read
     1 from offset 0 to 46% of read_len on, with 2% substitutions, then
-    random bases."""
+    random bases.  With `edge` (a band half-width E), every other pair's
+    read 2 follows read 1 along the band's last or first diagonal or the
+    one past it (read 1 from off - E, off + E, off - E - 1, off + E + 1
+    on, random bases where that falls outside read 1)."""
     import torch
     L = 16 * ((read_len + 15) // 16)
     g = torch.Generator(device=dev).manual_seed(seed)
     c1 = torch.randint(0, 4, (m, L), generator=g, device=dev)
     off = torch.randint(0, read_len * 46 // 100, (m,), generator=g,
                         device=dev)
+    shift = off.clone()
+    if edge is not None:
+        i = torch.arange(m, device=dev)
+        side = torch.tensor([-edge, edge, -edge - 1, edge + 1], device=dev)
+        shift = torch.where(i % 2 == 0, off + side[(i // 2) % 4], off)
     cols = torch.arange(L, device=dev)[None, :]
-    src = (cols + off[:, None]).clamp(max=L - 1)
-    c2 = torch.where(cols + off[:, None] < read_len, c1.gather(1, src),
+    src = cols + shift[:, None]
+    c2 = torch.where((src >= 0) & (src < read_len),
+                     c1.gather(1, src.clamp(0, L - 1)),
                      torch.randint(0, 4, (m, L), generator=g, device=dev))
     noise = torch.rand((m, L), generator=g, device=dev) < ERR_RATE
     c2 = torch.where(noise, (c2 + 1) % 4, c2)
@@ -1199,13 +1292,15 @@ READ_LENGTH_STAGES = {
 ACH_READ_LENGTHS = {"B_150": {"ach_lcs_alignments": 217_755},
                     "T_150": {"ach_lcs_alignments": 0},
                     "B_250": {"ach_lcs_alignments": 0}}
-# phase 10's noisy 40k reads with the band half-width of the wide K2 kernel
+# B with the band half-width of the wide K2 kernel (phase 12's B_40k_E16
+# on phase 10's noisy 40k reads, B-E16 on B's)
 B_E16_KW = {**B_KW, "max_error_rate_for_lcs": 16}
 
 
-def read_length_phase(dev, banded_dp, index) -> dict:
+def read_length_phase(dev, banded_dp, index, b_paths, b_reads) -> dict:
     """Phase 12 (see the module docstring); its record for summary.json.
-    `index` is phase 5's GenomeIndex: both recipes draw A's genome."""
+    `index` is phase 5's GenomeIndex: both recipes draw A's genome;
+    b_paths and b_reads are B's FASTQ files and their file reads."""
     import torch
     from alga_tpu_torch import config, pipeline
     t0 = time.perf_counter()
@@ -1270,36 +1365,49 @@ def read_length_phase(dev, banded_dp, index) -> dict:
             int(statistics.median(m for _, m in sh["gather_planes"])),
             int(statistics.median(sh["banded_lcs"])), read_len)
 
-    # B_40k_E16: the wide K2 kernel on a real assembly's pairs
+    # B_40k_E16 and B-E16: the wide K2 kernel on real assemblies' pairs
     genome, reads = bench_40k()
     noisy = noisy_40k(reads)
     check_digest("B_40k_E16", noisy, "reads_40k_B", DATASET_SHA256)
-    out = WORK / "B_40k_E16.fasta"
-    cfg = config.AssemblyConfig(output=str(out), **B_E16_KW)
-    res, launches, shapes, seen = logged_run(
-        banded_dp, lambda: pipeline.assemble_to_file(
-            cfg, file1_seqs=noisy, device=dev))
-    check_lcs_launches("B_40k_E16", launches, "banded_lcs_wide")
-    errs = real_launch_errors(banded_dp, seen, "B_40k_E16")
-    check_digest("B_40k_E16", out, "B_40k_E16")
-    rec["B_40k_E16"] = {**report("B_40k_E16", res.stats, len(noisy)),
-                        "launches": launches, "launch_errors": errs,
-                        "lcs_pairs": res.stats["counters"].get(
-                            "ach_lcs_pairs", 0),
-                        "launch_shapes": shapes}
-    # the wide kernel timed at B_40k_E16's median launch, on its own inputs
-    args = seen["banded_lcs"][len(seen["banded_lcs"]) // 2][0]
-    del seen
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    bound, kind = k2_bound(args[0], *args[2:], n_sm)
-    t = {"shape": f"{args[0].shape[1]} pairs of B_40k_E16, E=16",
-         "max_abs_err": errs["banded_lcs_wide"], "bound_ms": bound,
-         "bound_by": kind, "library_ms": None,
-         "plain_ms": median_ms(lambda: banded_dp.banded_lcs_batch(*args), 3),
-         "ms": graph_ms(lambda: banded_dp.banded_lcs(*args))}
-    rec["kernels_B_40k_E16"] = {"banded_lcs_wide": t}
-    log(f"B_40k_E16: kernel launches {launches}; banded_lcs_wide at its "
-        f"median launch: " + json.dumps(t))
+    for tag, kw in (("B_40k_E16", {"file1_seqs": noisy}),
+                    ("B_E16", {})):
+        out = WORK / f"{tag}_contigs.fasta"
+        files = ({} if kw else {"file1": b_paths[0], "file2": b_paths[1]})
+        cfg = config.AssemblyConfig(output=str(out), **files, **B_E16_KW)
+        res, launches, shapes, seen = logged_run(
+            banded_dp, lambda: pipeline.assemble_to_file(cfg, device=dev,
+                                                         **kw))
+        check_lcs_launches(tag, launches, "banded_lcs_wide")
+        errs = real_launch_errors(banded_dp, seen, tag)
+        check_digest(tag, out, tag)
+        n_reads = len(noisy) if kw else b_reads
+        rec[tag] = {**report(tag, res.stats, n_reads),
+                    "launches": launches, "launch_errors": errs,
+                    "lcs_pairs": res.stats["counters"].get(
+                        "ach_lcs_pairs", 0),
+                    "launch_shapes": shapes}
+        # every launch again at E = 1,000 (the row frame), exact
+        far = 0
+        for args, _ in seen["banded_lcs"]:
+            far = max(far, int((banded_dp.banded_lcs(*args[:5], 1000).long()
+                                - banded_dp.banded_lcs_batch(
+                                    *args[:5], 1000).long()).abs().max()))
+        if far != 0:
+            fail(f"{tag}: a launch re-run at E=1000 differs from the plain "
+                 f"version ({far})")
+        # the wide kernel timed at the run's median launch, on its inputs
+        args = sorted((a for a, _ in seen["banded_lcs"]),
+                      key=lambda a: a[0].shape[1])[
+                          len(seen["banded_lcs"]) // 2]
+        del seen
+        t = k2_record(banded_dp, args, 16, n_sm,
+                      f"{args[0].shape[1]} pairs of {tag}, E=16",
+                      errs["banded_lcs_wide"])
+        rec[f"kernels_{tag}"] = {"banded_lcs_wide": t}
+        log(f"{tag}: kernel launches {launches}; every launch also exact "
+            f"at E=1000; banded_lcs_wide at its median launch: "
+            + json.dumps(t))
     torch.cuda.synchronize()
     rec["phase_s"] = time.perf_counter() - t0
     log(f"read lengths: phase 12 took {rec['phase_s']:.1f}s")
@@ -1405,7 +1513,7 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f}s "
         f"(nvcc {_cuda.BUILD_INFO.get('seconds', 0.0):.1f}s)")
     for line in _cuda.BUILD_INFO.get("ptxas", "").splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry")):
             log(f"ptxas: {line.strip()}")
 
     # --- 3 kernels against their plain versions, main shapes -------------
@@ -1577,18 +1685,23 @@ def main() -> int:
         int(statistics.median(b12["banded_lcs"])))
 
     # --- 12 the read lengths users sequence (2x150, 2x250, trimmed) -----
-    lengths = read_length_phase(dev, banded_dp, index)
+    lengths = read_length_phase(dev, banded_dp, index, b_paths,
+                                n_file_reads)
     lcs_runs = {"B": {"launches": launches, "launch_errors": real_err},
                 "B_mesh": mesh_rec["B_mesh"],
                 **{tag: nonative[tag]
                    for tag in ("B_40k_engine", "B_40k_no_engine")},
                 "B_12M": flagship["B_12M"],
-                **{tag: lengths[tag]
-                   for tag in ("B_150", "T_150", "B_250", "B_40k_E16")}}
+                **{tag: lengths[tag] for tag in (
+                    "B_150", "T_150", "B_250", "B_40k_E16", "B_E16")}}
     by_path = {tag: r["launches"] for tag, r in lcs_runs.items()}
     at_shape = {"B": k_b, "B_12M": k_b12, "B_150": lengths["kernels_B_150"],
                 "B_250": lengths["kernels_B_250"],
-                "B_40k_E16": lengths["kernels_B_40k_E16"]}
+                "B_40k_E16": lengths["kernels_B_40k_E16"],
+                "B_E16": lengths["kernels_B_E16"],
+                **{f"K-wide-E{E}": {"banded_lcs_wide":
+                                    k_main[f"banded_lcs_wide@E{E}"]}
+                   for E in WIDE_TIMED[1:]}}
 
     (WORK / "summary.json").write_text(json.dumps(
         {"nvidia_smi": smi, "A": res_a, "B": res_b, "C": res_c,
@@ -1609,7 +1722,7 @@ def main() -> int:
     kernels = []
     for name, replaces in (("gather_planes", "banded_dp.py:69"),
                            ("banded_lcs", "banded_dp.py:152"),
-                           ("banded_lcs_wide", "banded_dp.py:152")):
+                           ("banded_lcs_wide", "banded_dp.py:259")):
         main = k_main[name]
         shaped = {tag: k[name] for tag, k in at_shape.items() if name in k}
         kernels.append({

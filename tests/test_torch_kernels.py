@@ -21,20 +21,27 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _pairs(rng, n_reads, m, E, read_len=120):
+def _pairs(rng, n_reads, m, E, read_len=120, edge=False):
     """Pair-major words of m pairs of reads of read_len/2 to read_len - 1
     bases, read 2 a noisy suffix of read 1, as banded_dp.banded_lcs takes
-    them."""
+    them.  With `edge`, half the pairs' read 2 follows read 1 along the
+    band's last or first diagonal or the one past it (a copy from offset
+    off - E, off + E, off - E - 1 or off + E + 1 on)."""
     lens = rng.integers(read_len // 2, read_len, n_reads)
     codes = rng.integers(0, 4, (n_reads, read_len)).astype(np.uint8)
     r1 = rng.integers(0, n_reads, m)
     r2 = (r1 + 1) % n_reads
     offs = rng.integers(0, read_len // 2, m)
-    for a, o in zip(r1, offs):
-        seg = codes[a, o:].copy()
+    shifts = offs.copy()
+    if edge:
+        at = np.arange(0, m, 2)
+        shifts[at] += np.array([-E, E, -E - 1, E + 1])[(at // 2) % 4]
+    for a, o in zip(r1, shifts):
+        seg = codes[a, max(o, 0):].copy()
         noise = rng.random(len(seg)) < 0.04
         seg[noise] = rng.integers(0, 4, noise.sum())
-        codes[(a + 1) % n_reads, : len(seg)] = seg
+        codes[(a + 1) % n_reads, max(-o, 0):max(-o, 0) + len(seg)] = \
+            seg[:read_len - max(-o, 0)]
     words = torch.from_numpy(
         packing.codes_to_packed(codes, lens).view(np.int32).T.copy())
     l32 = torch.from_numpy(lens.astype(np.int32))
@@ -68,13 +75,15 @@ def test_gather_planes_kernel_matches_plain(W, cuda_device):
 @pytest.mark.parametrize("m", [3001, 270_337], ids=["small", "large"])
 @pytest.mark.parametrize("read_len", [120, 250])
 @pytest.mark.parametrize("E", list(range(banded_dp.MAX_E + 1))
-                         + [16, 24, 31, 63, 255])
+                         + [16, 24, 31, 63, 255, 1000, 10_000])
 def test_banded_lcs_kernel_matches_plain(E, read_len, m, cuda_device):
     """Every band half-width of the register-band kernel and band
-    half-widths of the wide one (E >= 16), at fewer pairs than the card
-    has threads and at more than it holds at once; reads of 60-119 and of
-    125-249 bases (unequal, mostly not a multiple of 16) at offsets up to
-    half their length.  Each launch counts under its kernel's name."""
+    half-widths of the wide one (E >= 16; from E = 63 at 120 bases and
+    E = 255 at 250 the row frame of the read's 16W cells), at fewer pairs
+    than the card has threads and at more than it holds at once; reads of
+    60-119 and of 125-249 bases (unequal, mostly not a multiple of 16) at
+    offsets up to half their length.  Each launch counts under its
+    kernel's name."""
     args = [a.to(cuda_device) for a in _pairs(
         np.random.default_rng(E), 300, m, E, read_len)]
     want = banded_dp.banded_lcs_batch(*args, E)
@@ -84,6 +93,34 @@ def test_banded_lcs_kernel_matches_plain(E, read_len, m, cuda_device):
     name = "banded_lcs" if E <= banded_dp.MAX_E else "banded_lcs_wide"
     assert banded_dp.LAUNCHES[name] == 1
     assert sum(banded_dp.LAUNCHES.values()) == 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", list(banded_dp.WIDE_LANES))
+@pytest.mark.parametrize("read_len", [120, 250])
+@pytest.mark.parametrize("E", [16, 31, 55, 1000])
+def test_banded_lcs_wide_kernel_at_every_lane_count(E, read_len, lanes,
+                                                    cuda_device):
+    """The wide kernel with its lanes per pair forced to each of
+    WIDE_LANES, on 20,001 pairs, half of them aligned along the band's
+    edges: equal to the plain version wherever that many lanes hold the
+    row (2E+1 cells, or 16W past the read), refused with a ValueError
+    where they do not, on the card and the CPU alike."""
+    args = [a.to(cuda_device) for a in _pairs(
+        np.random.default_rng(E + lanes), 300, 20_001, E, read_len,
+        edge=True)]
+    W = args[0].shape[0]
+    if lanes * banded_dp.WIDE_CELLS[-1] < min(2 * E + 1, 16 * W):
+        for a in (args, [t.cpu() for t in args]):
+            with pytest.raises(ValueError, match="cannot hold a row"):
+                banded_dp.banded_lcs(*a, E, _lanes=lanes)
+        return
+    want = banded_dp.banded_lcs_batch(*args, E)
+    banded_dp.reset_launches()
+    got = banded_dp.banded_lcs(*args, E, _lanes=lanes)
+    torch.cuda.synchronize()
+    assert banded_dp.LAUNCHES["banded_lcs_wide"] == 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
@@ -108,12 +145,19 @@ def test_align_banded_lcs_launches_each_kernel_once(cuda_device):
 
 @pytest.mark.cuda
 def test_kernels_refuse_bad_input(cuda_device):
+    """Past the band limit the port had until the wide kernel held its row
+    in registers (847 at W = 8), and at E = 10,000, the kernel equals the
+    plain version; a negative band half-width, and tensors of the wrong
+    type or shape, raise."""
     args = [a.to(cuda_device) for a in _pairs(np.random.default_rng(1),
                                               50, 100, 2)]
-    limit = banded_dp.max_band_half_width(args[0].shape[0])
-    with pytest.raises(ValueError, match=f"outside \\[0, {limit}\\]"):
-        banded_dp.banded_lcs(*args, limit + 1)
-    assert banded_dp.banded_lcs(*args, limit).shape == (100,)
+    assert args[0].shape[0] == 8
+    for E in (847, 10_000):
+        np.testing.assert_array_equal(
+            banded_dp.banded_lcs(*args, E).cpu().numpy(),
+            banded_dp.banded_lcs_batch(*args, E).cpu().numpy())
+    with pytest.raises(ValueError, match="E=-1 < 0"):
+        banded_dp.banded_lcs(*args, -1)
     with pytest.raises(ValueError):
         banded_dp.banded_lcs(args[0].to(torch.int64), *args[1:], 2)
     idx = torch.zeros((2, 10), dtype=torch.int32, device=cuda_device)

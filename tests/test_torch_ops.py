@@ -172,23 +172,22 @@ def test_gather_planes_plain_matches_jax(rng, W, M):
 
 def test_align_banded_lcs_on_packed_table(rng):
     """The ACLCS entry: row gather + DP from the packed table equals the
-    oracle, at E = 2 and at E = 16 (the wide kernel's band on a card,
-    which alga_tpu runs through its XLA route); band half-widths past the
-    kernels' limit for the table's width raise, on the CPU as on a card."""
+    oracle, at E = 2, at E = 16 (the wide kernel's band on a card, which
+    alga_tpu runs through its XLA route), at E = 848, one past the limit
+    the port had for reads of 7 words until the wide kernel held its row
+    in registers, and at E = 10,000; a negative band half-width raises."""
     codes, lens, _ = _random_reads(rng, 30, 50, 100)
     r1, r2, offs = _overlapping_pairs(rng, codes, 150, 0.04)
     packed = packing.codes_to_packed(codes, lens)
+    assert packed.shape[1] == 7
     args = (_words(packed), _t(lens, torch.int32), _t(r1), _t(r2), _t(offs))
-    for E in (2, 16):
+    for E in (2, 16, 848, 10_000):
         got = align.banded_lcs(*args, E)
         want = [jalign.np_banded_lcs(codes, lens, a, b, int(o), E)
                 for a, b, o in zip(r1, r2, offs)]
         np.testing.assert_array_equal(got.numpy(), want)
-    limit = banded_dp.max_band_half_width(packed.shape[1])
-    assert limit >= 255
-    for E in (-1, limit + 1):
-        with pytest.raises(ValueError, match=f"outside \\[0, {limit}\\]"):
-            align.banded_lcs(*args, E)
+    with pytest.raises(ValueError, match="E=-1 < 0"):
+        align.banded_lcs(*args, -1)
 
 
 @pytest.mark.parametrize("min_device_batch", [0, 10**9])

@@ -12,8 +12,8 @@ compares, and K1's and K2's rows.
 
 Also the band half-widths E >= 16 (AssemblyConfig.max_error_rate_for_lcs),
 which alga_tpu runs through its XLA row scan and the port through the
-wide K2 kernel on a card: the plain banded LCS against alga_tpu's oracle,
-and whole assemblies against alga_tpu's."""
+wide K2 kernel on a card: the plain banded LCS against alga_tpu's oracle
+up to E = 10,000, and whole assemblies against alga_tpu's."""
 
 import numpy as np
 import pytest
@@ -97,12 +97,15 @@ def test_assemble_matches_jax_at_read_length(case, monkeypatch):
         assert got.stats["counters"]["ach_lcs_pairs"] > 0
 
 
-@pytest.mark.parametrize("E", [16, 24, 31, 63])
+@pytest.mark.parametrize("E", [16, 24, 31, 63, 839, 10_000])
 def test_wide_band_lcs_matches_oracle(E):
     """The port's banded LCS at band half-widths the wide kernel takes on
-    a card, against alga_tpu's literal oracle, on reads of 125-250 bases:
-    80 pairs whose read 2 is a noisy suffix of read 1 from offset 0-60 on,
-    35 random pairs at offsets 0-125 and 5 pairs with no row."""
+    a card, against alga_tpu's literal oracle, on reads of 125-250 bases
+    (16 words): E = 839 is one past the widest band the kernel's earlier
+    shared-memory design took for them, and from E = 128 on a row is the
+    read's 256 cells.  80 pairs whose read 2 is a noisy suffix of read 1
+    from offset 0-60 on, 35 random pairs at offsets 0-125 and 5 pairs with
+    no row."""
     rng = np.random.default_rng(E)
     n, L = 200, 256
     lens = rng.integers(125, 251, n)

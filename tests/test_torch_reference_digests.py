@@ -8,8 +8,8 @@ backend, on the datasets that chip_smoke.py builds: A and C through
 alga_tpu's CLI in-process (the CLI's configuration), B through
 alga_tpu.pipeline.assemble_to_file with chip_smoke.B_KW, all at 920k read
 slots; A_40k and B_40k as chip_smoke.py's phase 10 runs them, and
-B_40k_E16 as its phase 12 does (B_40k's reads with a band half-width of
-16).  When a recipe changes, the failure message prints the new digest.
+B_40k_E16 and B_E16 as its phase 12 does (B_40k's and B's reads with a
+band half-width of 16, chip_smoke.B_E16_KW).  When a recipe changes, the failure message prints the new digest.
 
     python -m pytest tests/test_torch_reference_digests.py -q   (~1 min)
 
@@ -71,10 +71,11 @@ def _run(case, scale, reads_40k, out):
         a, b = scale
         return _cli(a if case == "A" else b, out,
                     chip_smoke.C_CLI_ARGS if case == "C" else ())
-    if case == "B":
+    if case in ("B", "B_E16"):
         b = scale[1]
+        kw = chip_smoke.B_KW if case == "B" else chip_smoke.B_E16_KW
         jpipeline.assemble_to_file(AssemblyConfig(
-            file1=b[0], file2=b[1], output=str(out), **chip_smoke.B_KW))
+            file1=b[0], file2=b[1], output=str(out), **kw))
     else:
         seqs, kw = {"A_40k": (reads_40k[0], {}),
                     "B_40k": (reads_40k[1], chip_smoke.B_KW),
@@ -90,7 +91,7 @@ def _same_digests(got: dict) -> None:
 
 
 @pytest.mark.parametrize("case", ["datasets", "A", "B", "C", "A_40k",
-                                  "B_40k", "B_40k_E16"])
+                                  "B_40k", "B_40k_E16", "B_E16"])
 def test_reference_digest(request, tmp_path, case):
     if case == "datasets":
         a, b = request.getfixturevalue("scale")
